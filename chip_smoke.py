@@ -35,17 +35,23 @@ Phases, each of which raises on failure (exit code 1, no result line):
    from a seed; the port's ``train()`` at full width in the production
    configuration (B=8, N=7000, k=30, emb 1024, dropout 0.5, Adam, the
    default bands and recall guard) for 2 epochs, with the launch counts
-   asserted (per train step 1 ``scatter_add_rows``, stage 2's gather
-   VJP — stage 1 gathers the input points, which need no gradient, so
-   autograd never runs that backward —, 1 ``scatter_stage_tail_rows``, 3
-   banded kNNs); 20 steps on one fixed
-   batch (the loss falls; the median step time of the last 10, each with
-   its ``float(loss)`` read; the peak device memory); one step's
+   asserted (per train step 3 ``gather_rows``, the forward's neighbour
+   gathers; 1 ``scatter_add_rows``, stage 2's gather VJP — stage 1
+   gathers the input points, which need no gradient, so autograd never
+   runs that backward —; 1 ``scatter_stage_tail_rows``; 3 banded kNNs);
+   20 steps on one fixed batch (the loss falls; the median step time of
+   the last 10, each with its ``float(loss)`` read; the peak device
+   memory); one step's
    gradients on the GPU against the CPU plain versions at (2, 2048), the
    CPU replaying the card's neighbour indices; one tile served from the
    checkpoint the trainer wrote; then 10 steps in the parity mode
    (``knn_impl="pallas"``) on the same batch, with the launch counts per
-   step asserted, the loss, the median step time and the peak memory.
+   step asserted, the loss, the median step time and the peak memory;
+8. evaluation (the third path): ``python -m dgcnn_tpu_torch.train --eval
+   1`` in-process on phase 7's checkpoint and rooms at full width (two
+   batches of 8), the dumps and metrics against the same ``test()`` on the
+   CPU plain versions, and a forced recall-guard trip over both batches
+   against a run on the full capped kernel.
 
 The parity mode (``knn_impl="pallas"``: the exact banded kNN, stage 1 at
 band 2048, stages 2-3 at full width, 64 windows, cap 8) and the packed
@@ -61,10 +67,14 @@ mode, launch counts asserted), 5, 6 and 7.
 
 Phase 2 also holds the two scatter kernels of the training backward
 against their plain versions, with kNN indices of ``make_blocks`` batches
-and uniform random ones. Every kernel's row in the JSON line carries its
-bound: the larger of its bytes (each input read once, each output written
-once) over 3.35 TB/s and its FP32 operations over 67 TFLOP/s (the H100
-SXM's published peaks at 700 W).
+and uniform random ones; the training forward's row gather
+(``kernels/gather_rows.py``) bit for bit; and the split packed kNN
+(``knn_packed(..., splits=s)``) bit for bit on integer inputs, after which
+that entry point is driven on its own with the launch counters reset, and
+its routing to the flat kernel asserted. Every kernel's row in the JSON
+line carries its bound: the larger of its bytes (each input read once,
+each output written once) over 3.35 TB/s and its FP32 operations over 67
+TFLOP/s (the H100 SXM's published peaks at 700 W).
 
 Prints the kernels' JSON line and the card's ``nvidia-smi`` name and power
 limit before the last line, which is
@@ -367,7 +377,7 @@ def phase_kernels():
         plain_ms = cuda_ms(plain, 5)
         log(f"{name}: max abs diff {err:.3e}, kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
         fused.append({"name": name, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
-    return res, fused, phase_scatter(pts)
+    return res, fused, phase_scatter(pts), phase_gather(pts), phase_split(pts)
 
 
 def phase_scatter(pts):
@@ -431,6 +441,154 @@ def phase_scatter(pts):
             "case": f"C=64 {label}", "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "library_ms": None, "bound_ms": b_ms, "bound_by": b_by})
     return rows
+
+
+def phase_gather(pts):
+    """The training forward's row gather against its plain version, bit for bit (it is a copy), at the train
+    step's shapes: (B, N*k) indices of ``make_blocks`` batches and uniform
+    random ones into C=4 (stage 1 gathers the points) and C=64 tables
+    (stages 2-3); then a ragged case (N=1001, M=12345, C in 3 / 4 / 64)
+    with indices outside [0, N), which clamp. ``torch.gather`` on the same
+    rows is the library call (the port never makes it on the card)."""
+    import torch
+
+    from dgcnn_tpu_torch.kernels.gather_rows import gather_rows, gather_rows_plain
+    from dgcnn_tpu_torch.kernels.knn_capped import knn_capped
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(8)
+    indices = {"kNN of blocks": knn_capped(pts, K).reshape(B, N * K),
+               "uniform": torch.randint(0, N, (B, N * K), generator=g, device=dev,
+                                        dtype=torch.int32)}
+    rows = []
+    for label, idx in indices.items():
+        lib_idx = idx.long()[..., None]
+        for c in (4, 64):
+            table = pts if c == 4 else torch.randn((B, N, c), generator=g, device=dev)
+            got = gather_rows(table, idx)
+            want = gather_rows_plain(table, idx)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise AssertionError(f"gather_rows C={c} ({label}): kernel != plain")
+            ms = cuda_ms(lambda: gather_rows(table, idx), 20)
+            plain_ms = cuda_ms(lambda: gather_rows_plain(table, idx), 10)
+            library_ms = cuda_ms(
+                lambda: torch.gather(table, 1, lib_idx.expand(-1, -1, c)), 10)
+            # the table, the indices and the (B, N*k, C) output, once each
+            b_ms, b_by = bound(4.0 * (B * N * c + B * N * K + B * N * K * c), 0.0)
+            log(f"gather_rows C={c} ({label}): bit-equal, kernel {ms:.4f} ms, plain "
+                f"{plain_ms:.4f} ms, torch.gather {library_ms:.4f} ms, bound {b_ms:.4f} ms")
+            rows.append({"case": f"C={c} {label}", "max_abs_err": 0.0, "ms": ms,
+                         "plain_ms": plain_ms, "library_ms": library_ms,
+                         "bound_ms": b_ms, "bound_by": b_by})
+    n, m = 1001, 12345
+    idx = torch.randint(-7, n + 7, (3, m), generator=g, device=dev, dtype=torch.int32)
+    for c in (3, 4, 64):
+        table = torch.randn((3, n, c), generator=g, device=dev)
+        got = gather_rows(table, idx)
+        torch.cuda.synchronize()
+        if not torch.equal(got, gather_rows_plain(table, idx)):
+            raise AssertionError(f"gather_rows ragged C={c}: kernel != plain")
+    log(f"gather_rows ragged (B=3, N={n}, M={m}, C=3/4/64, indices in [-7, N+7)): "
+        "bit-equal, clamped")
+    return rows
+
+
+def phase_split(pts):
+    """The split packed kNN (``knn_packed(..., splits=s)``) against its
+    plain version at B=8, N=7000, k=30, C=4 and C=64, splits 2 and 8,
+    self and 1000 ``queries=``. Integer inputs: bit for bit; where every
+    distance fits the flat kernel's 18-bit keys (C=4 in [0, 8), C=64 in
+    [0, 2)) also equal to the flat packed kernel; on ints in [0, 16) the
+    two select differently on some rows (logged). Float inputs: bit for
+    bit across splits (the slicing does not change the result), against
+    the plain version within the packed keys' tolerance (the kernel's
+    ``fmaf`` chain and cuBLAS sum in other orders, so equal bits are not
+    guaranteed there), the rows unlike the plain version's and the flat
+    kernel's counted and logged. Then the wrapper's routing by launch
+    counts: ``splits=3`` (7040 % 3 != 0) and N=9000 with ``splits=2``
+    (n_pad 9088 > 8192) take the flat kernel."""
+    import torch
+
+    from dgcnn_tpu_torch.kernels.knn_packed import knn_packed, knn_packed_split_plain
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(15)
+    rows = []
+
+    def ints(hi, c):
+        return torch.from_numpy(rng.integers(0, hi, (B, N, c)).astype(np.float32)).to(dev)
+
+    feats = torch.from_numpy(rng.standard_normal((B, N, 64), np.float32)).to(dev)
+    cases = [(f"int C={c} in [0, {hi})", ints(hi, c), True, hi <= (8 if c == 4 else 2))
+             for c in (4, 64) for hi in ((8, 16) if c == 4 else (2, 16))]
+    cases += [("float C=4 (blocks)", pts, False, False), ("float C=64", feats, False, False)]
+    for name, x, int_valued, fits in cases:
+        q = x[:, torch.randperm(N, device=dev)[:1000]]
+        for queries in (None, q):
+            tag = "self" if queries is None else "1000 queries"
+            flat = knn_packed(x, K, queries=queries)
+            outs = {}
+            for s in (2, 8):
+                qq = x if queries is None else queries
+                outs[s] = knn_packed(x, K, queries=queries, splits=s)
+                want = knn_packed_split_plain(x, K, queries=queries)
+                torch.cuda.synchronize()
+                agree, err = _compare(f"knn_packed_split {name} {tag} splits {s}", x, qq,
+                                      outs[s], want, int_valued)
+                diff_flat = int((outs[s] != flat).any(-1).sum())
+                diff_plain = int((outs[s] != want).any(-1).sum())
+                if fits and diff_flat:
+                    raise AssertionError(f"knn_packed_split {name} {tag}: {diff_flat} rows "
+                                         "differ from the flat kernel where distances fit")
+                row = {"case": f"{name} {tag} splits {s}", "max_abs_err": err,
+                       "rows_unlike_plain": diff_plain, "rows_unlike_flat": diff_flat}
+                if queries is None and name in ("int C=4 in [0, 16)", "float C=4 (blocks)",
+                                                "float C=64"):
+                    row["ms"] = cuda_ms(lambda s=s: knn_packed(x, K, splits=s), 10)
+                    row["plain_ms"] = cuda_ms(lambda: knn_packed_split_plain(x, K), 2)
+                log(f"knn_packed_split {name} {tag} splits {s}: agreement {agree:.6f}, max "
+                    f"|d2 diff| {err:.3e}, of {flat.shape[0] * flat.shape[1]} rows "
+                    f"{diff_plain} unlike the plain version, {diff_flat} unlike the flat "
+                    f"kernel; kernel {row.get('ms', float('nan')):.3f} ms, plain "
+                    f"{row.get('plain_ms', float('nan')):.3f} ms")
+                rows.append(row)
+            if not torch.equal(outs[2], outs[8]):
+                raise AssertionError(f"knn_packed_split {name} {tag}: splits 2 != splits 8")
+    return rows
+
+
+def path_split() -> dict:
+    """Path B through its entry point, ``knn_packed(x, k, splits=s)``, the
+    counters reset just before and read just after: splits 2 and 8, self
+    and ``queries=``, at B=8 N=7000 C=64; then the routing cases that take
+    the flat kernel."""
+    import torch
+
+    from dgcnn_tpu_torch.kernels.knn_packed import knn_packed
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(16)
+    x = torch.from_numpy(rng.standard_normal((B, N, 64), np.float32)).to(dev)
+    counters = reset_counters()
+    for s in (2, 8):
+        knn_packed(x, K, splits=s)
+        knn_packed(x, K, queries=x[:, :1000], splits=s)
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in counters.items()}
+    if launches != {**{name: 0 for name in counters}, "knn_packed_split": 4}:
+        raise AssertionError(f"[split path] launches {launches}")
+    big = torch.from_numpy(rng.standard_normal((1, 9000, 4), np.float32)).to(dev)
+    for label, run in (("splits=3, n_pad 7040", lambda: knn_packed(x, K, splits=3)),
+                       ("splits=2, N=9000 (n_pad 9088 > 8192)",
+                        lambda: knn_packed(big, K, splits=2))):
+        reset_counters()
+        run()
+        if (counters["knn_packed"].launches, counters["knn_packed_split"].launches) != (1, 0):
+            raise AssertionError(f"[split path] {label}: did not take the flat kernel")
+        log(f"[split path] {label}: the flat packed kernel")
+    log(f"[split path] splits 2 and 8, self and 1000 queries: launches {launches}")
+    return launches
 
 
 def phase_wrappers():
@@ -593,7 +751,8 @@ def _counters():
     from dgcnn_tpu_torch.kernels.knn_capped import knn_capped
     from dgcnn_tpu_torch.kernels.knn_exact import knn_exact
     from dgcnn_tpu_torch.kernels.knn_exact_banded import knn_exact_banded_raw
-    from dgcnn_tpu_torch.kernels.knn_packed import knn_packed
+    from dgcnn_tpu_torch.kernels.gather_rows import gather_rows
+    from dgcnn_tpu_torch.kernels.knn_packed import _knn_packed_split, knn_packed
     from dgcnn_tpu_torch.kernels.scatter_rows import (
         scatter_add_rows, scatter_stage_tail_rows)
 
@@ -601,8 +760,10 @@ def _counters():
             "edgeconv_fused_extrema": edgeconv_fused_extrema,
             "knn_banded": knn_banded_raw, "knn_exact": knn_exact,
             "knn_exact_banded": knn_exact_banded_raw, "knn_packed": knn_packed,
+            "knn_packed_split": _knn_packed_split,
             "scatter_add_rows": scatter_add_rows,
-            "scatter_stage_tail_rows": scatter_stage_tail_rows}
+            "scatter_stage_tail_rows": scatter_stage_tail_rows,
+            "gather_rows": gather_rows}
 
 
 def reset_counters() -> dict:
@@ -899,10 +1060,12 @@ def phase_train(tmp: str):
     val_batches = epochs * -(-n_val // B)
     log(f"[train] train() {epochs} epochs, {steps} steps + {val_batches} validation batches "
         f"in {wall:.2f} s: {summary}; launches {launches}")
-    # per step: stage 2's gather VJP (stage 1 gathers the input points,
-    # which need no gradient) and stage 3's tail; 3 banded kNNs per forward
-    want = {"scatter_add_rows": steps, "scatter_stage_tail_rows": steps,
-            "knn_banded": 3 * (steps + val_batches)}
+    # per step: 3 forward gathers (stage 1 at C=4, stages 2-3 at C=64; the
+    # validation forwards take the fused kernels), stage 2's gather VJP
+    # (stage 1 gathers the input points, which need no gradient) and stage
+    # 3's tail; 3 banded kNNs per forward
+    want = {"gather_rows": 3 * steps, "scatter_add_rows": steps,
+            "scatter_stage_tail_rows": steps, "knn_banded": 3 * (steps + val_batches)}
     if any(launches[k_] != v for k_, v in want.items()):
         raise AssertionError(f"[train] launches {launches}, expected {want}")
     if not os.path.exists(os.path.join(root, "dgcnn_model.npz")) \
@@ -941,15 +1104,16 @@ def phase_train(tmp: str):
         f"peak memory {peak_gb:.3f} GB; launches per step {step_launches}")
     if not all(np.isfinite(losses)) or not np.mean(losses[-3:]) < losses[0]:
         raise AssertionError(f"[train] the loss did not fall on a fixed batch: {losses}")
-    if (step_launches["scatter_add_rows"], step_launches["scatter_stage_tail_rows"],
-            step_launches["knn_banded"]) != (1, 1, 3):
+    if (step_launches["gather_rows"], step_launches["scatter_add_rows"],
+            step_launches["scatter_stage_tail_rows"], step_launches["knn_banded"]) != (3, 1, 1, 3):
         raise AssertionError(f"[train] launches per step {step_launches}")
     # grad_accum=2: each micro-batch runs the path
     counters = reset_counters()
     make_train_step(cfg, grad_accum=2)(state, pts, labels, mask)
     torch.cuda.synchronize()
-    if (counters["scatter_add_rows"].launches, counters["scatter_stage_tail_rows"].launches,
-            counters["knn_banded"].launches) != (2, 2, 6):
+    if (counters["gather_rows"].launches, counters["scatter_add_rows"].launches,
+            counters["scatter_stage_tail_rows"].launches,
+            counters["knn_banded"].launches) != (6, 2, 2, 6):
         raise AssertionError("[train] grad_accum=2 launches "
                              f"{ {k_: fn.launches for k_, fn in counters.items()} }")
 
@@ -997,7 +1161,8 @@ def train_parity(pts, labels, mask, steps: int = 10) -> dict:
     """``steps`` train steps of the parity mode (``knn_impl="pallas"``: the
     exact banded kNN, no recall guard) at full width on one fixed batch:
     the loss falls, the launches per step (3 exact banded kNNs, each with
-    its 2 predicated exact kNNs; stage 2's gather VJP; stage 3's tail), the
+    its 2 predicated exact kNNs; 3 gathers; stage 2's gather VJP; stage
+    3's tail), the
     median step time of the last half and the peak device memory."""
     import torch
 
@@ -1027,7 +1192,7 @@ def train_parity(pts, labels, mask, steps: int = 10) -> dict:
         f"{per_step}")
     if not all(np.isfinite(losses)) or not np.mean(losses[-3:]) < losses[0]:
         raise AssertionError(f"[train parity] the loss did not fall on a fixed batch: {losses}")
-    want = {"knn_exact_banded": 3, "knn_exact": 6, "scatter_add_rows": 1,
+    want = {"knn_exact_banded": 3, "knn_exact": 6, "gather_rows": 3, "scatter_add_rows": 1,
             "scatter_stage_tail_rows": 1, "knn_banded": 0, "knn_capped": 0, "knn_packed": 0}
     if any(per_step[k_] != v for k_, v in want.items()):
         raise AssertionError(f"[train parity] launches per step {per_step}, expected {want}")
@@ -1036,9 +1201,111 @@ def train_parity(pts, labels, mask, steps: int = 10) -> dict:
             "launches_per_step": per_step}
 
 
+def phase_eval(tmp: str) -> dict:
+    """Phase 8: ``python -m dgcnn_tpu_torch.train --eval 1`` in-process on
+    the card, at full width, on phase 7's trained checkpoint and rooms (16
+    of the 20 rooms as the test partition: two batches of 8), at
+    confidence threshold 0, so that every point carries the model's class
+    (after 2 epochs no point reaches the default 0.8 and all would be
+    UNCLASSIFIED). Then the same ``test()`` on the CPU plain versions of
+    the banded path (``knn_impl="pallas_capped"`` with the default bands:
+    on the CPU ``auto`` names the exact kNN): the per-point predictions
+    may differ where the devices' kNNs break near-ties differently, in at
+    most 0.05% of the points. Then a forced trip of the recall guard over both batches: the
+    re-scored metrics and dumps equal a run whose feature stages take the
+    full capped kernel."""
+    from dgcnn_tpu_torch.eval.test import test
+    from dgcnn_tpu_torch.train import steps as steps_mod
+    from dgcnn_tpu_torch.train.__main__ import main as train_main
+    from dgcnn_tpu_torch.utils.logging import IOStream
+
+    rooms, root = os.path.join(tmp, "rooms"), os.path.join(tmp, "trained")
+    kw = dict(num_points=N, num_features=4, test_batch_size=B, emb_dims=1024,
+              model_root=root, validation_prop=0.8, seed=1, min_class_confidence=0.0)
+    cli = ["--eval", "1", "--data_dir", rooms, "--k", str(K), "--num_points", str(N),
+           "--num_features", "4", "--emb_dims", "1024", "--test_batch_size", str(B),
+           "--validation_prop", "0.8", "--min_class_confidence", "0.0", "--model_root", root,
+           "--test_visu_dir", os.path.join(tmp, "pred_cli"), "--device", "cuda"]
+    cwd = os.getcwd()
+    os.chdir(tmp)  # the CLI's log goes to ./checkpoints/<exp_name>/run.log
+    try:
+        t0 = time.perf_counter()
+        rc = train_main(cli)
+        cli_s = time.perf_counter() - t0
+    finally:
+        os.chdir(cwd)
+    cli_log = open(os.path.join(tmp, "checkpoints", "dgcnn_tpu", "run.log")).read()
+    io = IOStream(os.path.join(tmp, "eval.log"), stream=sys.stderr)
+
+    def dumps(pred_dir):
+        names = sorted(f for f in os.listdir(pred_dir) if f.endswith("_pred_gt.txt"))
+        return names, {f: np.loadtxt(os.path.join(pred_dir, f)) for f in names}
+
+    gpu = test(K, io, data_dir=rooms, pred_dir=os.path.join(tmp, "pred_gpu"), device="cuda",
+               **kw)
+    names, gpu_dumps = dumps(os.path.join(tmp, "pred_gpu"))
+    cli_names, cli_dumps = dumps(os.path.join(tmp, "pred_cli"))
+    n_true = len([f for f in os.listdir(os.path.join(tmp, "pred_cli"))
+                  if f.endswith("_true_labels.txt")])
+    if rc != 0 or len(names) != 16 or cli_names != names or n_true != 16 \
+            or f"test acc: {gpu['accuracy']:.6f}" not in cli_log:
+        raise AssertionError(f"[eval] --eval 1: rc {rc}, dumps {cli_names} / {names}, "
+                             f"{n_true} true-label files")
+    if any(not np.array_equal(cli_dumps[f], gpu_dumps[f]) for f in names):
+        raise AssertionError("[eval] the CLI's dumps differ from test()'s")
+    t0 = time.perf_counter()
+    cpu = test(K, io, data_dir=rooms, pred_dir=os.path.join(tmp, "pred_cpu"), device="cpu",
+               knn_impl="pallas_capped", **kw)  # on the CPU "auto" is the exact kNN
+    cpu_s = time.perf_counter() - t0
+    _, cpu_dumps = dumps(os.path.join(tmp, "pred_cpu"))
+    points = sum(len(d) for d in gpu_dumps.values())
+    differ = sum(int((gpu_dumps[f][:, 3] != cpu_dumps[f][:, 3]).sum()) for f in names)
+    cm_moved = float(np.abs(gpu["confusion"] - cpu["confusion"]).sum() / 2)
+    log(f"[eval] --eval 1 on the card ({cli_s:.2f} s): {points} points in {len(names)} rooms, "
+        f"acc {gpu['accuracy']:.6f}, balanced acc {gpu['balanced_accuracy']:.6f}, mean IoU "
+        f"{gpu['mean_iou']:.6f}, band_repaired {gpu['band_repaired']}; CPU plain "
+        f"({cpu_s:.2f} s): acc {cpu['accuracy']:.6f}, balanced acc "
+        f"{cpu['balanced_accuracy']:.6f}, mean IoU {cpu['mean_iou']:.6f}; {differ} points "
+        f"predicted differently, {cm_moved:.0f} moved in the confusion matrix")
+    if points != gpu["confusion"].sum() or differ > 0.0005 * points \
+            or cm_moved > 0.0005 * points:
+        raise AssertionError(f"[eval] card vs CPU: {differ} of {points} points differ")
+
+    # the forced trip: both batches suspect, re-scored with the capped kNN
+    forced = {"arm": True}
+    real = steps_mod.BandGuardScheduler.suspect_dispatches
+
+    def suspects(self):
+        return [0, 1] if forced.pop("arm", None) else []
+
+    steps_mod.BandGuardScheduler.suspect_dispatches = suspects
+    try:
+        fixed = test(K, io, data_dir=rooms, pred_dir=os.path.join(tmp, "pred_fix"),
+                     device="cuda", **kw)
+    finally:
+        steps_mod.BandGuardScheduler.suspect_dispatches = real
+    full = test(K, io, data_dir=rooms, pred_dir=os.path.join(tmp, "pred_full"),
+                device="cuda", knn_band_feature=0, **kw)
+    _, fix_dumps = dumps(os.path.join(tmp, "pred_fix"))
+    _, full_dumps = dumps(os.path.join(tmp, "pred_full"))
+    if forced or fixed["band_repaired"] != 2 \
+            or not np.array_equal(fixed["confusion"], full["confusion"]) \
+            or any(not np.array_equal(fix_dumps[f], full_dumps[f]) for f in names):
+        raise AssertionError(f"[eval] forced trip: repaired {fixed['band_repaired']}, "
+                             "metrics or dumps unlike the full capped kernel's")
+    log(f"[eval] forced guard trip over 2 batches: re-scored, equal to the full capped "
+        f"kernel's run (acc {full['accuracy']:.6f}; unrepaired {gpu['accuracy']:.6f})")
+    return {"points": points, "accuracy": gpu["accuracy"],
+            "balanced_accuracy": gpu["balanced_accuracy"], "mean_iou": gpu["mean_iou"],
+            "cpu_accuracy": cpu["accuracy"], "points_unlike_cpu": differ,
+            "confusion_moved_vs_cpu": cm_moved, "cli_s": cli_s, "cpu_s": cpu_s,
+            "forced_trip_repaired": fixed["band_repaired"]}
+
+
 def main() -> int:
     smi = phase_device()
-    knn_res, fused, scatter = phase_kernels()
+    knn_res, fused, scatter, gather, split = phase_kernels()
+    split_launches = path_split()
     phase_wrappers()
     parity_wrapper = phase_parity_wrappers()
     with tempfile.TemporaryDirectory() as tmp:
@@ -1047,6 +1314,7 @@ def main() -> int:
     fwd_ms, diffs = phase_forward()
     with tempfile.TemporaryDirectory() as tmp:
         trained = phase_train(tmp)
+        evaluated = phase_eval(tmp)
     import torch
 
     def pick(cases, label):
@@ -1120,7 +1388,29 @@ def main() -> int:
             "max_abs_err": max(r["max_abs_err"] for r in scatter[name]),
             **{k_: timed[k_] for k_ in ("ms", "plain_ms", "bound_ms", "bound_by",
                                          "library_ms")}})
-    log(json.dumps({"knn_cases": knn_res, "scatter_cases": scatter,
+    # the gather kernel on the train path (its launches in phase 7's
+    # train() run, 3 per step); the split kNN on
+    # Path B, knn_packed(..., splits=s), at C=64 with 8 splits (the same
+    # work, so the same bound, as the flat packed kernel)
+    timed = pick(gather, "C=64 kNN of blocks")
+    kernels.append({
+        "name": "gather_rows", "route": "cuda",
+        "source": "dgcnn_tpu_torch/kernels/csrc/gather_rows.cu",
+        "replaces": "dgcnn_tpu/kernels/gather_pallas.py:53",
+        "launches": trained["launches"]["gather_rows"], "max_abs_err": 0.0,
+        **{k_: timed[k_] for k_ in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}})
+    timed = pick(split, "float C=64 self splits 8")
+    b_ms, b_by = bound(bnc4 * (64 + 1 + 1 + K), 2.0 * B * N * N * 64)
+    kernels.append({
+        "name": "knn_packed_split", "route": "cuda",
+        "source": "dgcnn_tpu_torch/kernels/csrc/knn_packed.cu",
+        "replaces": "dgcnn_tpu/kernels/knn_pallas.py:195",
+        "launches": split_launches["knn_packed_split"],
+        "max_abs_err": max(r["max_abs_err"] for r in split),
+        "ms": timed["ms"], "plain_ms": timed["plain_ms"], "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": None})
+    log(json.dumps({"knn_cases": knn_res, "scatter_cases": scatter, "gather_cases": gather,
+                    "split_cases": split, "eval": evaluated,
                     "c4_bounds_ms": c4_bounds,
                     "forward_ms_per_batch": fwd_ms, "forward_prob_diff": diffs,
                     "capped_path_launches": capped_launches,

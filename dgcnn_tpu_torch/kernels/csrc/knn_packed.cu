@@ -1,8 +1,10 @@
-// Flat packed-key k-nearest-neighbour selection for Hopper (sm_90a).
+// Packed-key k-nearest-neighbour selection for Hopper (sm_90a): the flat
+// kernel and the split one.
 //
-// Replaces dgcnn_tpu/kernels/knn_pallas.py::_knn_kernel_packed (launched
-// from _knn_pallas_jit through knn_pallas(packed=True, cap=0), with or
-// without `queries`). It computes exactly what that kernel computes:
+// The flat kernel replaces dgcnn_tpu/kernels/knn_pallas.py::
+// _knn_kernel_packed (launched from _knn_pallas_jit through
+// knn_pallas(packed=True, cap=0), with or without `queries`). It computes
+// exactly what that kernel computes:
 //
 //   score(q, o) = (2 * <q, x_o> - |x_o|^2) - |q|^2   (knn_common.cuh, then
 //                                                     the recentring)
@@ -40,6 +42,26 @@
 // An optional device predicate `pred` (int32, may be null): when it reads
 // 0 every block returns at once.
 
+// The split kernel replaces knn_pallas.py::_knn_kernel_packed_split
+// (knn_pallas(packed=True, splits=s) where n_pad <= 8192 and n_pad % s ==
+// 0). Its keys differ from the flat kernel's: the monotone int is NOT
+// shifted and a fixed 13-bit index field replaces the low bits,
+//
+//   key = (monotone_int(score) & ~0x1FFF) | (n_pad - 1 - o)
+//
+// so it keeps 19 bits of score where the flat kernel keeps 18, and the two
+// select differently wherever two distances agree in 18 bits but not in
+// 19. The candidate rows are cut into `splits` contiguous slices [s*w,
+// (s+1)*w), w = n_pad / splits; each slice keeps its own top-k (blockIdx.z
+// is the slice: the flat kernel's scan over the slice's rows, its k
+// largest keys written to a (B, M, splits, K) scratch; a slice with fewer
+// than k real rows pads with INT_MIN, which never wins while N >= k), then
+// knn_split_merge_kernel takes the k largest of the splits*K winners, warp
+// per query, and decodes n_pad - 1 - (key & 0x1FFF). Keys are unique, so
+// the result is the top-k of the split keys whatever the slicing: the
+// slices shape the work, not the answer. Same bound as the flat kernel
+// (the scratch is (B, M, splits, K) int32 on top).
+
 #include <cuda_runtime.h>
 #include <climits>
 #include <cstdint>
@@ -52,13 +74,16 @@ constexpr int kLanes = 32;
 constexpr int kSlices = 8;  // warps per block, one slice of the rows each
 constexpr int kChunk = 8;   // rows of each slice staged per pass
 
-template <int KMAX, int CV>
+// kSplit: the split kernel's first pass (blockIdx.z = slice, un-shifted
+// keys, the slice's k largest KEYS to `out` = the (B, M, splits, K)
+// scratch); else the flat kernel (all rows, indices to `out` (B, M, K)).
+template <int KMAX, int CV, bool kSplit>
 __global__ void __launch_bounds__(kLanes * kSlices)
 knn_packed_kernel(const float* __restrict__ x,      // (B, N, CV)
                   const float* __restrict__ q,      // (B, M, CV)
                   const float* __restrict__ cnorm,  // (B, N)
                   const float* __restrict__ qnorm,  // (B, M)
-                  int* __restrict__ out,            // (B, M, K)
+                  int* __restrict__ out,
                   const int* __restrict__ pred,     // () or null
                   int N, int M, int K, int n_pad, int idx_bits) {
   if (pred != nullptr && *pred == 0) return;
@@ -87,34 +112,41 @@ knn_packed_kernel(const float* __restrict__ x,      // (B, N, CV)
 #pragma unroll
   for (int i = 0; i < KMAX; ++i) top[i] = INT_MIN;  // below every real key
 
-  const int per_slice = (N + kSlices - 1) / kSlices;
+  // the rows this block scans: [lo, hi), all of them unless kSplit
+  int lo = 0, hi = N;
+  if constexpr (kSplit) {
+    const int w = n_pad / (int)gridDim.z;
+    lo = min((int)blockIdx.z * w, N);
+    hi = min(lo + w, N);
+  }
+  const int per_slice = (hi - lo + kSlices - 1) / kSlices;
   for (int j0 = 0; j0 < per_slice; j0 += kChunk) {
     __syncthreads();
-    // stage rows o = (j0 + jj) * kSlices + wi, one of every slice per jj
+    // stage rows o = lo + (j0 + jj) * kSlices + wi, one of every slice per jj
     for (int t = threadIdx.x; t < kChunk * kSlices * vec; t += blockDim.x) {
       const int c4 = t % vec;
       const int wi = (t / vec) % kSlices;
       const int jj = t / (vec * kSlices);
-      const int o = (j0 + jj) * kSlices + wi;
+      const int o = lo + (j0 + jj) * kSlices + wi;
       float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (o < N) v = reinterpret_cast<const float4*>(xb + (size_t)o * CV)[c4];
+      if (o < hi) v = reinterpret_cast<const float4*>(xb + (size_t)o * CV)[c4];
       reinterpret_cast<float4*>(xs)[(jj * kSlices + wi) * vec + c4] = v;
-      if (c4 == 0) xn[jj * kSlices + wi] = o < N ? cb[o] : 0.f;
+      if (c4 == 0) xn[jj * kSlices + wi] = o < hi ? cb[o] : 0.f;
     }
     __syncthreads();
     for (int jj = 0; jj < kChunk; ++jj) {
-      const int o = (j0 + jj) * kSlices + warp;
-      if (o >= N) break;  // warp-uniform
+      const int o = lo + (j0 + jj) * kSlices + warp;
+      if (o >= hi) break;  // warp-uniform
       const float sc = __fsub_rn(
           knn_score<CV, false>(qv, xs + (jj * kSlices + warp) * CV, xn[jj * kSlices + warp]),
           qn);
-      int v = ((score_key(sc) >> 1) & ~imask) | (n_pad - 1 - o);
+      int v = ((score_key(sc) >> (kSplit ? 0 : 1)) & ~imask) | (n_pad - 1 - o);
       if (v > top[KMAX - 1]) {
 #pragma unroll
         for (int i = 0; i < KMAX; ++i) {
-          const int hi = max(top[i], v);
+          const int big = max(top[i], v);
           v = min(top[i], v);
-          top[i] = hi;
+          top[i] = big;
         }
       }
     }
@@ -128,7 +160,8 @@ knn_packed_kernel(const float* __restrict__ x,      // (B, N, CV)
     const int qq = q0 + ql;
     if (qq >= M) break;  // warp-uniform
     const int* keys = win + ql * stride;
-    int* orow = out + ((size_t)b * M + qq) * K;
+    const size_t orow = kSplit ? (((size_t)b * M + qq) * gridDim.z + blockIdx.z) * K
+                               : ((size_t)b * M + qq) * K;
     int prev = INT_MAX;
     for (int t = 0; t < K; ++t) {
       int best = INT_MIN;
@@ -139,42 +172,83 @@ knn_packed_kernel(const float* __restrict__ x,      // (B, N, CV)
 #pragma unroll
       for (int off = kLanes / 2; off > 0; off >>= 1)
         best = max(best, __shfl_xor_sync(0xffffffffu, best, off));
-      if (lane == 0) orow[t] = n_pad - 1 - (best & imask);
+      if (lane == 0) out[orow + t] = kSplit ? best : n_pad - 1 - (best & imask);
       prev = best;
     }
   }
 }
 
-template <int KMAX, int CV>
+// The split kernel's second pass: for each (b, query) row of the
+// (B, M, splits, K) winner keys, the K largest, decoded to indices;
+// warp per query, K rounds of "largest key below the last winner" (the
+// keys are re-read from L1 / L2 each round).
+__global__ void __launch_bounds__(kLanes * kSlices)
+knn_split_merge_kernel(const int* __restrict__ part,  // (B*M, count)
+                       int* __restrict__ out,         // (B*M, K)
+                       const int* __restrict__ pred,  // () or null
+                       size_t rows, int count, int K, int n_pad, int imask) {
+  if (pred != nullptr && *pred == 0) return;
+  const int lane = threadIdx.x % kLanes;
+  const size_t row = (size_t)blockIdx.x * kSlices + threadIdx.x / kLanes;
+  if (row >= rows) return;  // warp-uniform
+  const int* keys = part + row * count;
+  int prev = INT_MAX;
+  for (int t = 0; t < K; ++t) {
+    int best = INT_MIN;
+    for (int i = lane; i < count; i += kLanes) {
+      const int v = keys[i];
+      if (v < prev && v > best) best = v;
+    }
+#pragma unroll
+    for (int off = kLanes / 2; off > 0; off >>= 1)
+      best = max(best, __shfl_xor_sync(0xffffffffu, best, off));
+    if (lane == 0) out[row * K + t] = n_pad - 1 - (best & imask);
+    prev = best;
+  }
+}
+
+template <int KMAX, int CV, bool kSplit>
 cudaError_t launch(const float* x, const float* q, const float* cnorm,
                    const float* qnorm, int* out, const int* pred, int B, int N,
-                   int M, int K, int n_pad, int idx_bits, cudaStream_t stream) {
+                   int M, int K, int n_pad, int idx_bits, int splits,
+                   cudaStream_t stream) {
   const size_t smem =
       sizeof(float) * ((size_t)kChunk * kSlices * CV + kChunk * kSlices +
                        (size_t)kLanes * (kSlices * KMAX + 1));
-  auto kernel = knn_packed_kernel<KMAX, CV>;
+  auto kernel = knn_packed_kernel<KMAX, CV, kSplit>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((M + kLanes - 1) / kLanes, B);
+  const dim3 grid((M + kLanes - 1) / kLanes, B, splits);
   kernel<<<grid, kLanes * kSlices, smem, stream>>>(
       x, q, cnorm, qnorm, out, pred, N, M, K, n_pad, idx_bits);
   return cudaGetLastError();
 }
 
-template <int KMAX>
+template <int KMAX, bool kSplit>
 cudaError_t launch_cv(int cv, const float* x, const float* q,
                       const float* cnorm, const float* qnorm, int* out,
                       const int* pred, int B, int N, int M, int K, int n_pad,
-                      int idx_bits, cudaStream_t s) {
+                      int idx_bits, int splits, cudaStream_t s) {
   switch (cv) {
-    case 4: return launch<KMAX, 4>(x, q, cnorm, qnorm, out, pred, B, N, M, K, n_pad, idx_bits, s);
-    case 8: return launch<KMAX, 8>(x, q, cnorm, qnorm, out, pred, B, N, M, K, n_pad, idx_bits, s);
-    case 16: return launch<KMAX, 16>(x, q, cnorm, qnorm, out, pred, B, N, M, K, n_pad, idx_bits, s);
-    case 32: return launch<KMAX, 32>(x, q, cnorm, qnorm, out, pred, B, N, M, K, n_pad, idx_bits, s);
-    case 64: return launch<KMAX, 64>(x, q, cnorm, qnorm, out, pred, B, N, M, K, n_pad, idx_bits, s);
+    case 4: return launch<KMAX, 4, kSplit>(x, q, cnorm, qnorm, out, pred, B, N, M, K, n_pad, idx_bits, splits, s);
+    case 8: return launch<KMAX, 8, kSplit>(x, q, cnorm, qnorm, out, pred, B, N, M, K, n_pad, idx_bits, splits, s);
+    case 16: return launch<KMAX, 16, kSplit>(x, q, cnorm, qnorm, out, pred, B, N, M, K, n_pad, idx_bits, splits, s);
+    case 32: return launch<KMAX, 32, kSplit>(x, q, cnorm, qnorm, out, pred, B, N, M, K, n_pad, idx_bits, splits, s);
+    case 64: return launch<KMAX, 64, kSplit>(x, q, cnorm, qnorm, out, pred, B, N, M, K, n_pad, idx_bits, splits, s);
     default: return cudaErrorInvalidValue;
   }
+}
+
+template <bool kSplit>
+cudaError_t launch_k(int cv, const float* x, const float* q, const float* cnorm,
+                     const float* qnorm, int* out, const int* pred, int B, int N,
+                     int M, int K, int n_pad, int idx_bits, int splits,
+                     cudaStream_t s) {
+  if (K < 1 || K > 2 * kLanes) return cudaErrorInvalidValue;
+  if (K <= kLanes)
+    return launch_cv<kLanes, kSplit>(cv, x, q, cnorm, qnorm, out, pred, B, N, M, K, n_pad, idx_bits, splits, s);
+  return launch_cv<2 * kLanes, kSplit>(cv, x, q, cnorm, qnorm, out, pred, B, N, M, K, n_pad, idx_bits, splits, s);
 }
 
 }  // namespace
@@ -188,8 +262,29 @@ extern "C" int dgcnn_knn_packed(const float* x, const float* q,
                                 int* out, const int* pred, int B, int N, int M,
                                 int cv, int K, int n_pad, int idx_bits,
                                 void* stream) {
+  return launch_k<false>(cv, x, q, cnorm, qnorm, out, pred, B, N, M, K, n_pad,
+                         idx_bits, 1, static_cast<cudaStream_t>(stream));
+}
+
+// The split kernel: as dgcnn_knn_packed, with n_pad <= 8192 (13 index
+// bits), 2 <= splits <= 65535 dividing n_pad, and `part` a (B,M,splits,K)
+// int32 scratch. Two launches on `stream`. Returns a cudaError_t.
+extern "C" int dgcnn_knn_packed_split(const float* x, const float* q,
+                                      const float* cnorm, const float* qnorm,
+                                      int* part, int* out, const int* pred,
+                                      int B, int N, int M, int cv, int K,
+                                      int n_pad, int splits, void* stream) {
+  constexpr int kIdxBits = 13;
+  if (n_pad > (1 << kIdxBits) || splits < 2 || splits > 65535 || n_pad % splits)
+    return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (K < 1 || K > 2 * kLanes) return cudaErrorInvalidValue;
-  if (K <= kLanes) return launch_cv<kLanes>(cv, x, q, cnorm, qnorm, out, pred, B, N, M, K, n_pad, idx_bits, s);
-  return launch_cv<2 * kLanes>(cv, x, q, cnorm, qnorm, out, pred, B, N, M, K, n_pad, idx_bits, s);
+  cudaError_t err = launch_k<true>(cv, x, q, cnorm, qnorm, part, pred, B, N, M,
+                                   K, n_pad, kIdxBits, splits, s);
+  if (err != cudaSuccess) return err;
+  const size_t rows = (size_t)B * M;
+  if (rows == 0) return cudaSuccess;
+  const size_t blocks = (rows + kSlices - 1) / kSlices;
+  knn_split_merge_kernel<<<(unsigned)blocks, kLanes * kSlices, 0, s>>>(
+      part, out, pred, rows, splits * K, K, n_pad, (1 << kIdxBits) - 1);
+  return cudaGetLastError();
 }

@@ -24,9 +24,16 @@ import ctypes
 import torch
 
 from dgcnn_tpu_torch.kernels import _build
-from dgcnn_tpu_torch.ops.edgeconv import gather_neighbors, lrelu
+from dgcnn_tpu_torch.kernels.gather_rows import gather_rows_plain
+from dgcnn_tpu_torch.ops.edgeconv import lrelu
 
 _WIDTH = 64  # the kernels' table and W2 width
+
+
+def _gathered(table, idx) -> torch.Tensor:
+    """(B, N, k, C) rows of ``table`` at the clamped ``idx``, by ``torch.gather``."""
+    b, _, c = table.shape
+    return gather_rows_plain(table, idx.reshape(b, -1)).reshape(*idx.shape, c)
 
 
 def fold_bn(gamma, beta, mean, var, eps: float = 1e-5):
@@ -38,7 +45,7 @@ def fold_bn(gamma, beta, mean, var, eps: float = 1e-5):
 def edgeconv_fused_stage_plain(table, idx, bvec, w2, scale_a, shift_a,
                                scale_b, shift_b) -> torch.Tensor:
     """The fused stage in plain PyTorch; (B, N, C2)."""
-    e = gather_neighbors(table, idx) + bvec[:, :, None, :]
+    e = _gathered(table, idx) + bvec[:, :, None, :]
     e = lrelu(e * scale_a + shift_a)
     h = torch.matmul(e, w2)
     return lrelu(h * scale_b + shift_b).amax(dim=2)
@@ -47,7 +54,7 @@ def edgeconv_fused_stage_plain(table, idx, bvec, w2, scale_a, shift_a,
 def edgeconv_fused_extrema_plain(table, idx, bvec, gamma, scale,
                                  shift) -> torch.Tensor:
     """The fused stage-3 extrema in plain PyTorch; (B, N, C)."""
-    g = gather_neighbors(table, idx)
+    g = _gathered(table, idx)
     mx = g.amax(dim=2) + bvec
     mn = g.amin(dim=2) + bvec
     sel = torch.where(gamma >= 0, mx, mn)

@@ -1,5 +1,5 @@
-"""Flat packed-key kNN (``knn_impl="pallas_packed"``): the Hopper kernel and
-its plain PyTorch version.
+"""Packed-key kNN (``knn_impl="pallas_packed"``): the Hopper kernels and
+their plain PyTorch versions.
 
 Counterpart of ``dgcnn_tpu/kernels/knn_pallas.py::knn_pallas(packed=True,
 cap=0)``, whose kernel is ``_knn_kernel_packed``. Rows are padded to a
@@ -12,8 +12,20 @@ the k largest are fully determined (score ties go to the lower row). Past
 as the TPU wrapper does. It is also the capped kNN's fallback when
 ``n_win * cap < k`` (``knn_capped.py``).
 
-:func:`knn_packed` runs the CUDA kernel (``csrc/knn_packed.cu``) on a CUDA
-tensor and :func:`knn_packed_plain` on a CPU tensor.
+``splits > 1`` selects the split kernel where the TPU wrapper does
+(``knn_pallas(packed=True, splits=s)``: n_pad <= 8192 and n_pad % s == 0),
+the counterpart of ``_knn_kernel_packed_split``. Its keys are NOT shifted
+and carry a fixed 13-bit index field (:func:`packed_keys` with
+``shift=0``): 19 bits of score where the flat kernel keeps 18, so the two
+select differently wherever two distances agree in 18 bits but not in 19
+(the TPU docstrings' "identical to splits=1" holds only where they do
+not). The slices only shape the kernel's work: keys are unique, so the
+result is the top-k of the split keys.
+
+:func:`knn_packed` runs the CUDA kernels (``csrc/knn_packed.cu``) on a
+CUDA tensor, counted in ``knn_packed.launches`` (flat) and
+``_knn_packed_split.launches`` (split), and :func:`knn_packed_plain` or
+:func:`knn_packed_split_plain` on a CPU tensor.
 """
 
 from __future__ import annotations
@@ -28,6 +40,7 @@ from dgcnn_tpu_torch.kernels.knn_exact import knn_exact
 _ROW_ALIGN = 128
 _KERNEL_MAX_K = 64
 _QUERY_CHUNK = 1024  # plain version: queries per (B, chunk, n_pad) key tile
+_SPLIT_IDX_BITS = 13  # the split kernel's fixed index field (n_pad <= 8192)
 
 
 def packed_geometry(n: int) -> tuple[int, int]:
@@ -37,10 +50,12 @@ def packed_geometry(n: int) -> tuple[int, int]:
 
 
 def packed_keys(x: torch.Tensor, q: torch.Tensor, n_pad: int,
-                idx_bits: int) -> torch.Tensor:
+                idx_bits: int, shift: int = 1) -> torch.Tensor:
     """(B, M, n_pad) int32 packed keys of the queries ``q`` (B, M, C)
     against the rows of ``x`` (B, N, C) padded to ``n_pad`` rows, bit for
-    bit the TPU kernels' (the capped kernel's too, on its own padding)."""
+    bit the TPU kernels' (the capped kernel's too, on its own padding).
+    The split kernel's keys (``_knn_kernel_packed_split``) are
+    ``shift=0`` with 13 index bits: its monotone int32 is not shifted."""
     b, n, _ = x.shape
     imask = (1 << idx_bits) - 1
     cn = (x * x).sum(-1)
@@ -49,79 +64,159 @@ def packed_keys(x: torch.Tensor, q: torch.Tensor, n_pad: int,
     scores[..., :n] = (2.0 * torch.matmul(q, x.transpose(1, 2))
                        - cn[:, None, :]) - qn[..., None]
     bits = scores.view(torch.int32)
-    # where(bits >= 0, bits, INT_MIN - bits) >> 1, overflow-free
-    key = torch.where(bits >= 0, bits, -(bits & 0x7FFFFFFF)) >> 1
+    # where(bits >= 0, bits, INT_MIN - bits) >> shift, overflow-free
+    key = torch.where(bits >= 0, bits, -(bits & 0x7FFFFFFF)) >> shift
     inv = (n_pad - 1 - torch.arange(n_pad, device=x.device)).to(torch.int32)
     return (key & ~imask) | inv
+
+
+def _top_by_keys(x, q, k, n_pad, idx_bits, shift) -> torch.Tensor:
+    """``torch.topk`` of the packed keys over query chunks, decoded to row
+    indices (keys are unique, so the order is fully determined)."""
+    imask = (1 << idx_bits) - 1
+    out = []
+    for s in range(0, q.shape[1], _QUERY_CHUNK):
+        top = packed_keys(x, q[:, s:s + _QUERY_CHUNK], n_pad, idx_bits,
+                          shift).topk(k, dim=-1).values
+        out.append((n_pad - 1 - (top & imask)).to(torch.int32))
+    return torch.cat(out, dim=1)
 
 
 def knn_packed_plain(x: torch.Tensor, k: int, *,
                      queries: torch.Tensor | None = None) -> torch.Tensor:
     """The packed kernel's selection in plain PyTorch: the same keys, bit
-    for bit in int32, then ``torch.topk`` (keys are unique, so the order is
-    fully determined). (B, M, k) int32. Requires at most 15 index bits, as
-    the kernel does."""
+    for bit in int32, then ``torch.topk``. (B, M, k) int32. Requires at
+    most 15 index bits, as the kernel does."""
     n_pad, idx_bits = packed_geometry(x.shape[1])
     if idx_bits > 15:
         raise ValueError(f"the packed kNN takes at most 15 index bits, not {idx_bits}")
-    q = x if queries is None else queries
-    imask = (1 << idx_bits) - 1
-    out = []
-    for s in range(0, q.shape[1], _QUERY_CHUNK):
-        top = packed_keys(x, q[:, s:s + _QUERY_CHUNK], n_pad, idx_bits).topk(k, dim=-1).values
-        out.append((n_pad - 1 - (top & imask)).to(torch.int32))
-    return torch.cat(out, dim=1)
+    return _top_by_keys(x, x if queries is None else queries, k, n_pad, idx_bits, 1)
 
 
-def knn_packed(x: torch.Tensor, k: int, *, queries: torch.Tensor | None = None,
-               pred: torch.Tensor | None = None) -> torch.Tensor:
-    """k nearest rows of ``x`` (B, N, C) for each row of ``queries`` (B, M,
-    C; default ``x``: self-kNN) by the packed keys. (B, M, k) int32,
-    nearest first. Launches the CUDA kernel on a CUDA tensor (counted in
-    ``knn_packed.launches``) and the plain version on a CPU tensor.
+def knn_packed_split_plain(x: torch.Tensor, k: int, *,
+                           queries: torch.Tensor | None = None) -> torch.Tensor:
+    """The split kernel's selection in plain PyTorch: its keys (not
+    shifted, 13 index bits), then ``torch.topk``; the slicing does not change the result, so it
+    takes no ``splits``. (B, M, k) int32. Requires n_pad <= 8192, as the
+    kernel does."""
+    n_pad, _ = packed_geometry(x.shape[1])
+    if n_pad > 1 << _SPLIT_IDX_BITS:
+        raise ValueError(f"the split kNN takes n_pad <= {1 << _SPLIT_IDX_BITS}, not {n_pad}")
+    return _top_by_keys(x, x if queries is None else queries, k, n_pad, _SPLIT_IDX_BITS, 0)
 
-    ``pred``: an optional 0-d bool tensor on ``x``'s device; where it is
-    False the kernel does no work and the result is undefined."""
+
+def _checked(x: torch.Tensor, k: int, queries: torch.Tensor | None):
+    """(x, q) as float32 after the wrappers' shape checks."""
     b, n, c = x.shape
     if k > n:
         raise ValueError(f"k={k} exceeds number of points {n}")
     q = x if queries is None else queries
     if q.ndim != 3 or q.shape[0] != b or q.shape[2] != c:
         raise ValueError(f"queries {tuple(q.shape)} do not match x {tuple(x.shape)}")
-    n_pad, idx_bits = packed_geometry(n)
-    x, q = x.float(), q.float()
-    queries = None if queries is None else q
-    if idx_bits > 15:
-        # the TPU wrapper's f32-exact fallback for wide index fields
-        return knn_exact(x, k, queries=queries, pred=pred)
-    if x.device.type == "cpu":
-        if _build.skipped(pred):
-            return torch.zeros((b, q.shape[1], k), dtype=torch.int32)
-        return knn_packed_plain(x, k, queries=queries)
+    x = x.float()
+    return x, x if queries is None else q.float()
+
+
+def _operands(x: torch.Tensor, q: torch.Tensor, self_knn: bool, k: int):
+    """The CUDA kernels' operands ``(x, q, |x|^2, |q|^2, width)``: x and q
+    zero-padded to the kernel width and contiguous, the norms taken before
+    the padding (zeros change none)."""
     if x.device.type != "cuda":
-        raise ValueError(f"knn_packed runs on cpu or cuda, not {x.device}")
+        raise ValueError(f"the packed kNN runs on cpu or cuda, not {x.device}")
     if k > _KERNEL_MAX_K:
         raise ValueError(f"the CUDA kernel takes k <= {_KERNEL_MAX_K}, not {k}")
     if q.device != x.device:
         raise ValueError(f"queries must be on {x.device}")
+    c = x.shape[2]
     cv = _build.kernel_width(c)
     cn = (x * x).sum(-1).contiguous()
     qn = (q * q).sum(-1).contiguous()
     if cv != c:
         x = torch.nn.functional.pad(x, (0, cv - c))
-        q = x if queries is None else torch.nn.functional.pad(q, (0, cv - c))
-    x, q = x.contiguous(), q.contiguous()
+        q = x if self_knn else torch.nn.functional.pad(q, (0, cv - c))
+    return x.contiguous(), q.contiguous(), cn, qn, cv
+
+
+def _stream(dev) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+
+
+def knn_packed(x: torch.Tensor, k: int, *, queries: torch.Tensor | None = None,
+               pred: torch.Tensor | None = None, splits: int = 1) -> torch.Tensor:
+    """k nearest rows of ``x`` (B, N, C) for each row of ``queries`` (B, M,
+    C; default ``x``: self-kNN) by the packed keys. (B, M, k) int32,
+    nearest first. Launches the CUDA kernel on a CUDA tensor (counted in
+    ``knn_packed.launches``) and the plain version on a CPU tensor.
+
+    ``splits`` is routed as the TPU wrapper routes it: past 15 index bits
+    the f32-exact kNN; else the split kernel where ``splits > 1``,
+    n_pad <= 8192 and ``splits`` divides n_pad; else the flat kernel.
+    ``pred``: an optional 0-d bool tensor on ``x``'s device; where it is
+    False the kernel does no work and the result is undefined."""
+    x, q = _checked(x, k, queries)
+    b, n, _ = x.shape
+    queries = None if queries is None else q
+    n_pad, idx_bits = packed_geometry(n)
+    if idx_bits > 15:
+        # the TPU wrapper's f32-exact fallback for wide index fields
+        return knn_exact(x, k, queries=queries, pred=pred)
+    if split_applies(n, splits):
+        return _knn_packed_split(x, k, splits, queries, pred)
+    if x.device.type == "cpu":
+        if _build.skipped(pred):
+            return torch.zeros((b, q.shape[1], k), dtype=torch.int32)
+        return knn_packed_plain(x, k, queries=queries)
+    x, q, cn, qn, cv = _operands(x, q, queries is None, k)
     m = q.shape[1]
     flag = _build.predicate(pred, x.device)
     out = torch.empty((b, m, k), dtype=torch.int32, device=x.device)
     err = _build.lib().dgcnn_knn_packed(
         x.data_ptr(), q.data_ptr(), cn.data_ptr(), qn.data_ptr(), out.data_ptr(),
         None if flag is None else flag.data_ptr(), b, n, m, cv, k, n_pad, idx_bits,
-        ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream),
-    )
+        _stream(x.device))
     _build.check(err, "knn_packed")
     knn_packed.launches += 1
     return out
 
 
+def split_applies(n: int, splits: int) -> bool:
+    """Whether ``knn_pallas(packed=True, splits=splits)`` runs the split
+    kernel on ``n`` rows: ``splits > 1``, n_pad <= 8192 (beyond, the TPU
+    wrapper sets ``splits = 1``) and ``splits`` divides n_pad."""
+    n_pad, _ = packed_geometry(n)
+    return splits > 1 and n_pad <= 1 << _SPLIT_IDX_BITS and n_pad % splits == 0
+
+
+def _knn_packed_split(x: torch.Tensor, k: int, splits: int,
+                      queries: torch.Tensor | None,
+                      pred: torch.Tensor | None) -> torch.Tensor:
+    """The split kernel (``_knn_kernel_packed_split``), reached through
+    :func:`knn_packed` where :func:`split_applies`, on its checked float32
+    operands: the packed kNN with the candidate rows cut into ``splits``
+    contiguous slices, each with its own top-k, then one merge. (B, M, k)
+    int32, nearest first. Launches the CUDA kernel on a CUDA tensor
+    (counted in ``_knn_packed_split.launches``) and
+    :func:`knn_packed_split_plain` on a CPU tensor."""
+    b, n, _ = x.shape
+    q = x if queries is None else queries
+    if x.device.type == "cpu":
+        if _build.skipped(pred):
+            return torch.zeros((b, q.shape[1], k), dtype=torch.int32)
+        return knn_packed_split_plain(x, k, queries=queries)
+    x, q, cn, qn, cv = _operands(x, q, queries is None, k)
+    m = q.shape[1]
+    n_pad, _ = packed_geometry(n)
+    flag = _build.predicate(pred, x.device)
+    part = torch.empty((b, m, splits, k), dtype=torch.int32, device=x.device)
+    out = torch.empty((b, m, k), dtype=torch.int32, device=x.device)
+    err = _build.lib().dgcnn_knn_packed_split(
+        x.data_ptr(), q.data_ptr(), cn.data_ptr(), qn.data_ptr(), part.data_ptr(),
+        out.data_ptr(), None if flag is None else flag.data_ptr(), b, n, m, cv, k,
+        n_pad, splits, _stream(x.device))
+    _build.check(err, "knn_packed_split")
+    _knn_packed_split.launches += 1
+    return out
+
+
 knn_packed.launches = 0
+_knn_packed_split.launches = 0

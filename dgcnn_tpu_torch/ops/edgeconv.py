@@ -18,6 +18,8 @@ written (none is left to autograd's default backward):
 
 * :func:`gather_neighbors` — the backward scatter-add runs
   ``kernels/scatter_rows.py::scatter_add_rows`` (a CUDA kernel on the card);
+  its forward gather, and stage 3's, runs ``kernels/gather_rows.py::gather_rows``
+  (a CUDA kernel on the card);
 * :func:`bn_lrelu_train` — one-pass training BN + LeakyReLU, ``e`` the only
   large residual;
 * :func:`bn_lrelu_max_train` — ... + first-argmax max over k; both BN sums
@@ -37,6 +39,7 @@ from __future__ import annotations
 
 import torch
 
+from dgcnn_tpu_torch.kernels.gather_rows import gather_rows
 from dgcnn_tpu_torch.kernels.scatter_rows import (
     scatter_add_rows,
     scatter_stage_tail_rows,
@@ -52,9 +55,10 @@ def lrelu(x: torch.Tensor) -> torch.Tensor:
 
 
 def _gather(feats: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    b, n, c = feats.shape
-    flat = idx.long().clamp(0, n - 1).reshape(b, -1, 1).expand(-1, -1, c)
-    return torch.gather(feats, 1, flat).reshape(*idx.shape, c)
+    """(B, N, C) rows at (B, N, k) indices, clamped: the gather kernel on a
+    CUDA table (float32, or it raises), its plain version on a CPU one."""
+    b, _, c = feats.shape
+    return gather_rows(feats, idx.reshape(b, -1).to(torch.int32)).reshape(*idx.shape, c)
 
 
 class _GatherNeighbors(torch.autograd.Function):

@@ -3,11 +3,13 @@
 Counterpart of ``dgcnn_tpu/ops/metrics.py``: the train and eval steps
 accumulate a (C, C) confusion matrix on the device, and accuracy,
 balanced accuracy and IoU are derived from it at logging time (host
-numpy or tensors alike).
+numpy or tensors alike). :func:`calculate_sem_iou` is a copy of the
+original's host-side per-room IoU (evaluation).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -52,3 +54,21 @@ def iou_from_confusion(cm) -> torch.Tensor:
     inter = torch.diagonal(cm)
     union = cm.sum(dim=0) + cm.sum(dim=1) - inter
     return inter / union
+
+
+def calculate_sem_iou(pred_rooms, true_rooms, num_classes: int) -> np.ndarray:
+    """Host-side per-class IoU over a list of rooms: sequences of per-room
+    prediction and ground-truth label arrays (NaN where a class is in
+    neither)."""
+    inter = np.zeros(num_classes, np.float64)
+    union = np.zeros(num_classes, np.float64)
+    for pred, true in zip(pred_rooms, true_rooms):
+        pred = np.asarray(pred)
+        true = np.asarray(true)
+        for c in range(num_classes):
+            p = pred == c
+            t = true == c
+            inter[c] += np.sum(p & t)
+            union[c] += np.sum(p | t)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        return inter / union

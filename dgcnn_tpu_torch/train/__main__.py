@@ -1,12 +1,19 @@
-"""CLI for training on the GPU.
+"""CLI for training, and evaluating a checkpoint, on the GPU.
 
     python -m dgcnn_tpu_torch.train --data_dir rooms/ --num_features 4 \
         --k 30 --batch_size 8 --epochs 30 [--device cuda]
+    python -m dgcnn_tpu_torch.train --eval 1 --data_dir rooms/ \
+        --num_features 4 --k 30 [--test_batch_size 8] [--device cuda]
 
-The flags are ``main.py``'s training flags (``--mode classifier --eval
-0``), with the same names and defaults, plus ``--device`` (default
-``cuda``). ``main.py``'s TPU-only ``--knn_train_unroll`` (the Mosaic
-compile cache) has no counterpart. The log goes to
+The flags are ``main.py``'s training and test flags (``--mode classifier
+--eval 0`` and ``--eval 1``), with the same names and defaults, plus
+``--device`` (default ``cuda``). ``--eval 1`` scores the checkpoint
+``<model_root>/<model_label>.npz`` on the validation rooms
+(``eval/test.py::test_args``) instead of training, writing the per-room
+dumps to ``--test_visu_dir``. ``main.py``'s TPU-only
+``--knn_train_unroll`` (the Mosaic compile cache) has no counterpart, nor
+has the ``DGCNN_GATHER_IMPL`` knob: on the card the training forward's row
+gathers always run the gather kernel. The log goes to
 ``checkpoints/<exp_name>/run.log``, as ``main.py`` writes it.
 """
 
@@ -16,6 +23,7 @@ import argparse
 import os
 import sys
 
+from dgcnn_tpu_torch.eval.test import test_args
 from dgcnn_tpu_torch.train.loop import train_args
 from dgcnn_tpu_torch.utils.logging import IOStream
 
@@ -32,14 +40,17 @@ def str2bool(v) -> bool:
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser("dgcnn_tpu_torch.train")
+    p.add_argument("--eval", type=str2bool, default=False)
     p.add_argument("--data_dir", type=str, default="")
     p.add_argument("--tb_dir", type=str, default="log_tensorboard")
     p.add_argument("--exp_name", type=str, default="dgcnn_tpu")
     p.add_argument("--model", type=str, default="dgcnn", choices=["dgcnn"])
     p.add_argument("--num_classes", type=int, default=5)
     p.add_argument("--num_features", type=int, default=3)
+    p.add_argument("--validation_area", type=str, default="1")
     p.add_argument("--batch_size", type=int, default=12)
     p.add_argument("--validation_batch_size", type=int, default=12)
+    p.add_argument("--test_batch_size", type=int, default=8)
     p.add_argument("--epochs", type=int, default=50)
     p.add_argument("--use_sgd", type=str2bool, default=False)
     p.add_argument("--lr", type=float, default=0.001)
@@ -50,9 +61,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--emb_dims", type=int, default=1024)
     p.add_argument("--k", type=int, default=20)
     p.add_argument("--model_root", type=str, default="checkpoints/dgcnn")
+    p.add_argument("--test_visu_dir", default="predict")
     p.add_argument("--validation_prop", type=float, default=0.2)
     p.add_argument("--exclude_classes", nargs="*", type=int, default=[-1])
     p.add_argument("--model_label", type=str, default="dgcnn_model")
+    p.add_argument("--min_class_confidence", type=float, default=0.8)
     p.add_argument("--patience", type=int, default=None,
                    help="early-stop after N epochs without validation improvement")
     p.add_argument("--num_points", type=int, default=7000)
@@ -88,7 +101,7 @@ def main(argv=None) -> int:
     os.makedirs(f"checkpoints/{args.exp_name}", exist_ok=True)
     io = IOStream(f"checkpoints/{args.exp_name}/run.log")
     io.cprint(str(args))
-    train_args(args, io)
+    (test_args if args.eval else train_args)(args, io)
     return 0
 
 

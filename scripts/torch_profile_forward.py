@@ -46,6 +46,8 @@ GROUPS = (
     ("knn_banded_kernel", "knn_banded"),
     ("knn_capped_kernel", "knn_capped"),
     ("knn_exact_kernel", "knn_exact"),
+    ("knn_split_merge", "knn_packed_split (merge)"),
+    ("gather_rows", "gather_rows"),
     ("scatter_rows", "scatter_add_rows"),
     ("scatter_tail", "scatter_stage_tail_rows"),
     ("multi_tensor", "optimizer (foreach Adam)"),

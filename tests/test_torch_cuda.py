@@ -332,3 +332,77 @@ def test_train_step_on_cuda_matches_cpu_plain_versions(dev):
     for k, want in grads[1].items():
         # the tolerance of tests/test_torch_train.py: sum order (atomics, cuBLAS)
         assert (grads[0][k] - want).norm().item() / max(want.norm().item(), floor) <= 1e-2, k
+
+
+@pytest.mark.parametrize("b, n, m, c", [
+    (2, 3000, 90000, 4), (2, 3000, 90000, 64),  # the stage widths
+    (3, 1001, 12345, 3), (1, 77, 301, 64),      # ragged; C=3 takes the scalar path
+])
+def test_gather_rows_kernel_equals_plain(dev, b, n, m, c):
+    from dgcnn_tpu_torch.kernels.gather_rows import gather_rows, gather_rows_plain
+
+    rng = np.random.default_rng(n + c)
+    table, = _on(dev, rng.standard_normal((b, n, c)).astype(np.float32))
+    idx, = _on(dev, rng.integers(-5, n + 5, (b, m)).astype(np.int32))  # some clamp
+    before = gather_rows.launches
+    got = gather_rows(table, idx)
+    torch.cuda.synchronize()
+    assert gather_rows.launches == before + 1
+    assert torch.equal(got, gather_rows_plain(table, idx))  # a copy: bit for bit
+
+
+def test_training_gather_launches_the_kernel(dev):
+    from dgcnn_tpu_torch.kernels.gather_rows import gather_rows, gather_rows_plain
+    from dgcnn_tpu_torch.ops.edgeconv import gather_neighbors
+
+    rng = np.random.default_rng(4)
+    feats, = _on(dev, rng.standard_normal((2, 500, 64)).astype(np.float32))
+    idx, = _on(dev, rng.integers(0, 500, (2, 500, 20)).astype(np.int32))
+    before = gather_rows.launches
+    got = gather_neighbors(feats, idx)
+    assert gather_rows.launches == before + 1
+    want = gather_rows_plain(feats, idx.reshape(2, -1)).reshape(2, 500, 20, 64)
+    assert torch.equal(got, want)
+    with pytest.raises(ValueError, match="float32"):
+        gather_neighbors(feats.double(), idx)
+
+
+@pytest.mark.parametrize("splits", [2, 4])
+@pytest.mark.parametrize("c", [3, 64])
+def test_split_kernel_equals_plain_on_integer_inputs(dev, c, splits):
+    from dgcnn_tpu_torch.kernels.knn_packed import _knn_packed_split, knn_packed_split_plain
+
+    rng = np.random.default_rng(c + splits)
+    x, q = _on(dev, rng.integers(0, 64, (2, 3000, c)).astype(np.float32),
+               rng.integers(0, 64, (2, 90, c)).astype(np.float32))
+    before = _knn_packed_split.launches
+    assert torch.equal(knn_packed(x, 30, splits=splits), knn_packed_split_plain(x, 30))
+    assert torch.equal(knn_packed(x, 13, queries=q, splits=splits),
+                       knn_packed_split_plain(x, 13, queries=q))
+    assert _knn_packed_split.launches == before + 2
+
+
+def test_eval_test_on_the_card(dev, tmp_path):
+    """One ``test()`` on the card against the same call on the CPU plain
+    versions: the devices' kNNs may break a near-tie differently, so a few
+    predictions may differ."""
+    from dgcnn_tpu_torch.eval.test import test
+    from dgcnn_tpu_torch.train.checkpoint import save_checkpoint
+    from dgcnn_tpu_torch.train.steps import init_train_state
+    from dgcnn_tpu_torch.utils.logging import IOStream
+    from torch_port_helpers import write_rooms
+
+    write_rooms(str(tmp_path), n_rooms=6, n_points=1500, seed=3)
+    cfg = DGCNNConfig(k=20, emb_dims=64)
+    save_checkpoint(str(tmp_path / "ckpt" / "dgcnn_model.npz"),
+                    init_train_state(cfg, seed=4, device="cpu"))
+    kw = dict(data_dir=str(tmp_path), num_points=1024, num_features=4, test_batch_size=2,
+              emb_dims=64, min_class_confidence=0.0, model_root=str(tmp_path / "ckpt"),
+              validation_prop=0.5)
+    io = IOStream(str(tmp_path / "eval.log"))
+    gpu = test(20, io, pred_dir=str(tmp_path / "gpu"), device="cuda", **kw)
+    cpu = test(20, io, pred_dir=str(tmp_path / "cpu"), device="cpu", knn_impl="pallas_capped",
+               **kw)
+    total = gpu["confusion"].sum()
+    assert total == 3 * 1024
+    assert np.abs(gpu["confusion"] - cpu["confusion"]).sum() / 2 <= 0.005 * total

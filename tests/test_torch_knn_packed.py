@@ -1,9 +1,11 @@
-"""Port flat packed kNN (dgcnn_tpu_torch.kernels.knn_packed) against the JAX
+"""Port packed kNN (dgcnn_tpu_torch.kernels.knn_packed) against the JAX
 package on the CPU: the plain version against the interpreted
 ``knn_pallas(packed=True)`` (kernel ``_knn_kernel_packed``) on integer
 inputs, where every score is exact in FP32 and the keys are bit-equal, at
-13, 14 and 15 index bits and past them (the exact-kNN fallback); and the
-capped kNN's small-input fallback to it."""
+13, 14 and 15 index bits and past them (the exact-kNN fallback); the
+capped kNN's small-input fallback to it; and the split variant
+(``knn_pallas(packed=True, splits=s)``, kernel
+``_knn_kernel_packed_split``) with the TPU wrapper's routing."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -14,9 +16,12 @@ from dgcnn_tpu.kernels.knn_pallas import knn_pallas
 from dgcnn_tpu_torch.kernels.knn_capped import knn_capped
 from dgcnn_tpu_torch.kernels.knn_exact import knn_exact_plain
 from dgcnn_tpu_torch.kernels.knn_packed import (
+    _knn_packed_split,
     knn_packed,
     knn_packed_plain,
+    knn_packed_split_plain,
     packed_geometry,
+    split_applies,
 )
 
 
@@ -93,3 +98,68 @@ def test_validation():
         knn_packed(torch.zeros(1, 40, 3), 8, queries=torch.zeros(1, 5, 4))
     with pytest.raises(ValueError, match="15 index bits"):
         knn_packed_plain(torch.zeros(1, 33000, 3), 8)
+
+
+# ---------------------------------------------------------------- splits > 1
+# Integers in [0, 64) with C=3-4: the dots stay exact in FP32, and the
+# squared distances need more than 10 significant bits, so the split
+# kernel's un-shifted 19-bit score keys select differently from the flat
+# kernel's 18-bit ones on some rows.
+
+@pytest.mark.parametrize("n, c, k, splits, with_queries", [
+    (1500, 3, 20, 2, False),
+    (1111, 4, 7, 4, True),
+    (700, 4, 30, 8, False),
+    (900, 3, 13, 4, True),
+])
+def test_split_plain_matches_jax_kernel(n, c, k, splits, with_queries):
+    x = _ints(n + splits, (2, n, c), hi=64)
+    q = _ints(n + 1, (2, 60, c), hi=64) if with_queries else None
+    tq = None if q is None else torch.from_numpy(q)
+    want = _jax_packed(x, k, q, splits=splits)
+    tx = torch.from_numpy(x)
+    assert split_applies(n, splits)
+    before = _knn_packed_split.launches
+    np.testing.assert_array_equal(knn_packed_split_plain(tx, k, queries=tq).numpy(), want)
+    np.testing.assert_array_equal(knn_packed(tx, k, queries=tq, splits=splits).numpy(), want)
+    assert _knn_packed_split.launches == before  # CPU: the plain version
+
+
+def test_split_keys_are_not_the_flat_kernel_s():
+    """The TPU docstrings call the split result identical to splits=1; it
+    is only where distances fit the 18-bit keys. Here both packages'
+    split results differ from both packages' flat results on some rows
+    (sparse points: the 30 nearest lie past d^2 = 1024)."""
+    x = _ints(40, (2, 256, 4), hi=64)
+    tx = torch.from_numpy(x)
+    split = knn_packed(tx, 30, splits=4).numpy()
+    flat = knn_packed(tx, 30).numpy()
+    np.testing.assert_array_equal(split, _jax_packed(x, 30, splits=4))
+    np.testing.assert_array_equal(flat, _jax_packed(x, 30))
+    assert (split != flat).any(axis=-1).sum() > 0
+
+
+@pytest.mark.parametrize("n, splits, why", [
+    (1000, 3, "n_pad 1024 % 3 != 0"),
+    (8300, 2, "n_pad 8320 > 8192: splits = 1"),
+    (600, 1, "splits 1"),
+])
+def test_split_routing_falls_back_to_the_flat_kernel(n, splits, why):
+    x = _ints(n, (1, n, 3), hi=64)
+    q = _ints(n + 2, (1, 40, 3), hi=64)
+    tx, tq = torch.from_numpy(x), torch.from_numpy(q)
+    assert not split_applies(n, splits), why
+    want = _jax_packed(x, 16, q, splits=splits)
+    got = knn_packed(tx, 16, queries=tq, splits=splits).numpy()
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, knn_packed_plain(tx, 16, queries=tq).numpy())
+
+
+def test_split_wrapper_on_cpu_honours_pred():
+    x = torch.from_numpy(_ints(3, (2, 900, 4), hi=64))
+    skipped = knn_packed(x, 10, queries=x[:, :50], pred=torch.tensor(False), splits=2)
+    assert skipped.shape == (2, 50, 10) and not skipped.any()
+    assert torch.equal(knn_packed(x, 10, pred=torch.tensor(True), splits=2),
+                       knn_packed_split_plain(x, 10))
+    with pytest.raises(ValueError, match="n_pad <= 8192"):
+        knn_packed_split_plain(torch.zeros(1, 8300, 3), 8)
