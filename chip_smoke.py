@@ -74,7 +74,12 @@ that entry point is driven on its own with the launch counters reset, and
 its routing to the flat kernel asserted. Every kernel's row in the JSON
 line carries its bound: the larger of its bytes (each input read once,
 each output written once) over 3.35 TB/s and its FP32 operations over 67
-TFLOP/s (the H100 SXM's published peaks at 700 W).
+TFLOP/s (the H100 SXM's published peaks at 700 W). The two row kernels
+(``scatter_add_rows``, ``gather_rows``) and their library calls
+(``index_add_``, ``torch.gather``) are timed by ``cuda_ms_many``: 50
+calls per pair of events, queued behind a device sleep so that the host
+does not set the pace, median of 10 runs; their rows also carry the C=4
+case (``"c4"``).
 
 Prints the kernels' JSON line and the card's ``nvidia-smi`` name and power
 limit before the last line, which is
@@ -128,6 +133,84 @@ def cuda_ms(fn, reps: int) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def cuda_ms_many(fn, launches: int = 50, runs: int = 10) -> float:
+    """Median device milliseconds per call of ``fn()``: ``runs`` timed runs
+    of ``launches`` back-to-back calls between one pair of CUDA events,
+    divided by the count, after one warm-up run. For kernels of tens of
+    microseconds one pair of events per launch would time the launch gaps
+    too, and a wrapper's host code can take longer than its kernel: so each
+    run's calls are queued behind a device sleep (``torch.cuda._sleep``)
+    that outlasts their enqueueing, and the card runs them back to back
+    (a run whose enqueueing outlasted the sleep is repeated with a sleep
+    twice as long)."""
+    import torch
+
+    for _ in range(launches):
+        fn()
+    torch.cuda.synchronize()
+    cycles, times = 1 << 20, []
+    while len(times) < runs:
+        queued, start, end = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+        queued.record()
+        torch.cuda._sleep(cycles)
+        start.record()
+        t0 = time.perf_counter()
+        for _ in range(launches):
+            fn()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        end.record()
+        torch.cuda.synchronize()
+        if host_ms >= queued.elapsed_time(start):
+            cycles *= 2  # the card caught up with the host: queue behind a longer sleep
+            if cycles > 1 << 32:  # seconds: fn() must wait for the card
+                raise RuntimeError("cuda_ms_many: the calls do not queue (a host sync?)")
+            continue
+        times.append(start.elapsed_time(end) / launches)
+    return float(np.median(times))
+
+
+def time_scatter_rows(dy, flat_idx, n: int) -> dict:
+    """``scatter_add_rows`` (the wrapper: ``torch.zeros`` of the output, then
+    the kernel), its plain version and the library call, ``index_add_``
+    into a freshly zeroed (B * n, C) table, all timed by
+    :func:`cuda_ms_many`; with the bound (dy and the indices read once,
+    the (B, n, C) output written once; one add per element)."""
+    import torch
+
+    from dgcnn_tpu_torch.kernels.scatter_rows import scatter_add_rows, scatter_add_rows_plain
+
+    b, m, c = dy.shape
+    targets = (flat_idx.long() + torch.arange(b, device=dy.device)[:, None] * n).reshape(-1)
+    dy2 = dy.reshape(-1, c)
+    b_ms, b_by = bound(4.0 * (b * m * c + b * m + b * n * c), b * m * c)
+    return {
+        "ms": cuda_ms_many(lambda: scatter_add_rows(dy, flat_idx, n)),
+        "plain_ms": cuda_ms_many(lambda: scatter_add_rows_plain(dy, flat_idx, n), 10, 5),
+        "library_ms": cuda_ms_many(lambda: torch.zeros(
+            (b * n, c), device=dy.device).index_add_(0, targets, dy2)),
+        "bound_ms": b_ms, "bound_by": b_by}
+
+
+def time_gather_rows(table, idx) -> dict:
+    """``gather_rows``, its plain version and the library call,
+    ``torch.gather`` on the same rows (int64 indices made beforehand), all
+    timed by :func:`cuda_ms_many`; with the bound (the table, the indices
+    and the (B, M, C) output, once each)."""
+    import torch
+
+    from dgcnn_tpu_torch.kernels.gather_rows import gather_rows, gather_rows_plain
+
+    b, n, c = table.shape
+    m = idx.shape[1]
+    lib_idx = idx.long()[..., None].expand(-1, -1, c)
+    b_ms, b_by = bound(4.0 * (b * n * c + b * m + b * m * c), 0.0)
+    return {
+        "ms": cuda_ms_many(lambda: gather_rows(table, idx)),
+        "plain_ms": cuda_ms_many(lambda: gather_rows_plain(table, idx), 10, 5),
+        "library_ms": cuda_ms_many(lambda: torch.gather(table, 1, lib_idx)),
+        "bound_ms": b_ms, "bound_by": b_by}
 
 
 def make_blocks(b: int, n: int, seed: int) -> np.ndarray:
@@ -386,8 +469,12 @@ def phase_scatter(pts):
     210 000 rows per cloud) and stage 3's tail (C=64), plus the C=4 width
     of a stage-1 gather VJP (the train step skips that one: the input
     points need no gradient), with the kNN indices of ``make_blocks``
-    batches and uniform random ones. The sums are atomic, so their order
-    changes from run to run: 1e-5 absolute and relative."""
+    batches and uniform random ones; then the row scatter on a ragged case
+    (N=1001, M=12345, C in 1 / 3 / 4 / 8 / 64 / 68 / 128) with indices
+    outside [0, N), which clamp. The sums are atomic, so their order
+    changes from run to run: 1e-5 absolute and relative. Times: kernel,
+    plain version and ``index_add_`` by :func:`cuda_ms_many`, each with
+    the zeroing of its output."""
     import torch
 
     from dgcnn_tpu_torch.kernels.knn_capped import knn_capped
@@ -410,18 +497,11 @@ def phase_scatter(pts):
             torch.cuda.synchronize()
             torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
             err = (got - want).abs().max().item()
-            table = torch.zeros((B * N, c), device=dev)
-            targets = (flat_idx.long() + torch.arange(B, device=dev)[:, None] * N).reshape(-1)
-            dy2 = dy.reshape(-1, c)
-            ms = cuda_ms(lambda: scatter_add_rows(dy, flat_idx, N), 20)
-            plain_ms = cuda_ms(lambda: scatter_add_rows_plain(dy, flat_idx, N), 10)
-            library_ms = cuda_ms(lambda: table.index_add_(0, targets, dy2), 10)
-            b_ms, b_by = bound(4.0 * (B * N * K * c + B * N * K + B * N * c), B * N * K * c)
-            log(f"scatter_add_rows C={c} ({label}): max abs diff {err:.3e}, kernel {ms:.3f} ms, "
-                f"plain {plain_ms:.3f} ms, index_add_ {library_ms:.3f} ms, bound {b_ms:.4f} ms")
-            rows["scatter_add_rows"].append({
-                "case": f"C={c} {label}", "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                "library_ms": library_ms, "bound_ms": b_ms, "bound_by": b_by})
+            t = time_scatter_rows(dy, flat_idx, N)
+            log(f"scatter_add_rows C={c} ({label}): max abs diff {err:.3e}, kernel "
+                f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, zeros + index_add_ "
+                f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms")
+            rows["scatter_add_rows"].append({"case": f"C={c} {label}", "max_abs_err": err, **t})
         u = torch.randn((B, N, 64), generator=g, device=dev)
         w = torch.randn((B, N, 64), generator=g, device=dev)
         am = torch.randint(0, K, (B, N, 64), generator=g, device=dev).to(torch.int8)
@@ -431,8 +511,8 @@ def phase_scatter(pts):
         torch.testing.assert_close(sums, want_sums, atol=1e-5, rtol=1e-5)
         torch.testing.assert_close(count, want_count, atol=0, rtol=0)
         err = (sums - want_sums).abs().max().item()
-        ms = cuda_ms(lambda: scatter_stage_tail_rows(u, w, am, idx), 20)
-        plain_ms = cuda_ms(lambda: scatter_stage_tail_rows_plain(u, w, am, idx), 5)
+        ms = cuda_ms_many(lambda: scatter_stage_tail_rows(u, w, am, idx))
+        plain_ms = cuda_ms_many(lambda: scatter_stage_tail_rows_plain(u, w, am, idx), 5, 5)
         b_ms, b_by = bound(4.0 * (2 * B * N * 64 + B * N * K + B * N * 64 + B * N)
                            + B * N * 64, 2.0 * B * N * K * 64)
         log(f"scatter_stage_tail_rows ({label}): max abs diff {err:.3e}, kernel {ms:.3f} ms, "
@@ -440,16 +520,28 @@ def phase_scatter(pts):
         rows["scatter_stage_tail_rows"].append({
             "case": f"C=64 {label}", "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "library_ms": None, "bound_ms": b_ms, "bound_by": b_by})
+    n, m = 1001, 12345
+    idx = torch.randint(-7, n + 7, (3, m), generator=g, device=dev, dtype=torch.int32)
+    for c in (1, 3, 4, 8, 64, 68, 128):
+        dy = torch.randn((3, m, c), generator=g, device=dev)
+        got = scatter_add_rows(dy, idx, n)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, scatter_add_rows_plain(dy, idx, n), atol=1e-5,
+                                   rtol=1e-5)
+    log(f"scatter_add_rows ragged (B=3, N={n}, M={m}, C=1/3/4/8/64/68/128, indices in "
+        "[-7, N+7)): within 1e-5, clamped")
     return rows
 
 
 def phase_gather(pts):
-    """The training forward's row gather against its plain version, bit for bit (it is a copy), at the train
-    step's shapes: (B, N*k) indices of ``make_blocks`` batches and uniform
-    random ones into C=4 (stage 1 gathers the points) and C=64 tables
-    (stages 2-3); then a ragged case (N=1001, M=12345, C in 3 / 4 / 64)
-    with indices outside [0, N), which clamp. ``torch.gather`` on the same
-    rows is the library call (the port never makes it on the card)."""
+    """The training forward's row gather against its plain version, bit
+    for bit (it is a copy), at the train step's shapes: (B, N*k) indices of
+    ``make_blocks`` batches and uniform random ones into C=4 (stage 1
+    gathers the points) and C=64 tables (stages 2-3); then a ragged case
+    (N=1001, M=12345, C in 1 / 3 / 4 / 8 / 64 / 68 / 128) with indices
+    outside [0, N), which clamp.
+    ``torch.gather`` on the same rows is the library call (the port never
+    makes it on the card), timed like the kernel (:func:`cuda_ms_many`)."""
     import torch
 
     from dgcnn_tpu_torch.kernels.gather_rows import gather_rows, gather_rows_plain
@@ -462,7 +554,6 @@ def phase_gather(pts):
                                         dtype=torch.int32)}
     rows = []
     for label, idx in indices.items():
-        lib_idx = idx.long()[..., None]
         for c in (4, 64):
             table = pts if c == 4 else torch.randn((B, N, c), generator=g, device=dev)
             got = gather_rows(table, idx)
@@ -470,26 +561,20 @@ def phase_gather(pts):
             torch.cuda.synchronize()
             if not torch.equal(got, want):
                 raise AssertionError(f"gather_rows C={c} ({label}): kernel != plain")
-            ms = cuda_ms(lambda: gather_rows(table, idx), 20)
-            plain_ms = cuda_ms(lambda: gather_rows_plain(table, idx), 10)
-            library_ms = cuda_ms(
-                lambda: torch.gather(table, 1, lib_idx.expand(-1, -1, c)), 10)
-            # the table, the indices and the (B, N*k, C) output, once each
-            b_ms, b_by = bound(4.0 * (B * N * c + B * N * K + B * N * K * c), 0.0)
-            log(f"gather_rows C={c} ({label}): bit-equal, kernel {ms:.4f} ms, plain "
-                f"{plain_ms:.4f} ms, torch.gather {library_ms:.4f} ms, bound {b_ms:.4f} ms")
-            rows.append({"case": f"C={c} {label}", "max_abs_err": 0.0, "ms": ms,
-                         "plain_ms": plain_ms, "library_ms": library_ms,
-                         "bound_ms": b_ms, "bound_by": b_by})
+            t = time_gather_rows(table, idx)
+            log(f"gather_rows C={c} ({label}): bit-equal, kernel {t['ms']:.4f} ms, plain "
+                f"{t['plain_ms']:.4f} ms, torch.gather {t['library_ms']:.4f} ms, bound "
+                f"{t['bound_ms']:.4f} ms")
+            rows.append({"case": f"C={c} {label}", "max_abs_err": 0.0, **t})
     n, m = 1001, 12345
     idx = torch.randint(-7, n + 7, (3, m), generator=g, device=dev, dtype=torch.int32)
-    for c in (3, 4, 64):
+    for c in (1, 3, 4, 8, 64, 68, 128):
         table = torch.randn((3, n, c), generator=g, device=dev)
         got = gather_rows(table, idx)
         torch.cuda.synchronize()
         if not torch.equal(got, gather_rows_plain(table, idx)):
             raise AssertionError(f"gather_rows ragged C={c}: kernel != plain")
-    log(f"gather_rows ragged (B=3, N={n}, M={m}, C=3/4/64, indices in [-7, N+7)): "
+    log(f"gather_rows ragged (B=3, N={n}, M={m}, C=1/3/4/8/64/68/128, indices in [-7, N+7)): "
         "bit-equal, clamped")
     return rows
 
@@ -1352,15 +1437,26 @@ def main() -> int:
          pick(knn_res["knn_packed"], "knn_packed float C=64"),
          bound(bnc4 * (64 + 1 + 1 + K), 2.0 * B * N * N * 64)),
     ]
-    # the C=4 cases' bounds, for the kernel table: stage 1's exact banded
-    # kNN scores, per query, the rows of its tile's band below N
+    # the C=4 cases' bounds, for the kernel table. A banded kNN scores, per
+    # query, the rows of its tile's band below N: stage 1's exact banded
+    # kNN at query tile 256, the default path's banded kNN at 512, both at
+    # band 2048. The capped kNN scores all N candidates per query (padding
+    # rows score -inf without a dot); the flat exact kNN's self-kNN runs
+    # at N=40 000, B=1
     from dgcnn_tpu_torch.kernels.knn_banded import band_starts
 
-    qt, band4, n_pad = 256, 2048, -(-N // 128) * 128
-    pairs = sum(min(qt, N - i * qt) * (min(s + band4, N) - s)
-                for i, s in enumerate(band_starts(-(-N // qt) * qt, qt, n_pad, band4)))
+    band4, n_pad, n_big = 2048, -(-N // 128) * 128, 40000
+
+    def band_pairs(qt):
+        return sum(min(qt, N - i * qt) * (min(s + band4, N) - s)
+                   for i, s in enumerate(band_starts(-(-N // qt) * qt, qt, n_pad, band4)))
+
     c4_bounds = {
-        "knn_exact_banded C=4 band 2048": bound(bnc4 * (4 + 1 + K + 2), 2.0 * B * pairs * 4),
+        "knn_capped C=4": bound(bnc4 * (4 + K), 2.0 * B * N * N * 4),
+        "knn_banded C=4 band 2048": bound(bnc4 * (4 + K + 1), 2.0 * B * band_pairs(512) * 4),
+        "knn_exact C=4 self N=40000": bound(4.0 * n_big * (4 + K), 2.0 * n_big * n_big * 4),
+        "knn_exact_banded C=4 band 2048": bound(bnc4 * (4 + 1 + K + 2),
+                                                2.0 * B * band_pairs(256) * 4),
         "knn_packed C=4": bound(bnc4 * (4 + 1 + 1 + K), 2.0 * B * N * N * 4),
     }
     # each kernel's launches on the path that runs it: the default serving
@@ -1376,18 +1472,22 @@ def main() -> int:
         "ms": timed["ms"], "plain_ms": timed["plain_ms"],
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
     } for name, src, tpu, cases, timed, (b_ms, b_by) in rows]
-    for name, tpu, label in (("scatter_add_rows", "scatter_pallas.py:25", "C=64 kNN of blocks"),
-                             ("scatter_stage_tail_rows", "scatter_pallas.py:78",
-                              "C=64 kNN of blocks")):
-        timed = pick(scatter[name], label)
+    timing = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+
+    def c4_case(cases):  # the row kernels' C=4 width beside the C=64 one
+        return {"c4": {k_: pick(cases, "C=4 kNN of blocks")[k_] for k_ in timing}}
+
+    for name, tpu in (("scatter_add_rows", "scatter_pallas.py:25"),
+                      ("scatter_stage_tail_rows", "scatter_pallas.py:78")):
+        timed = pick(scatter[name], "C=64 kNN of blocks")
         kernels.append({
             "name": name, "route": "cuda",
             "source": "dgcnn_tpu_torch/kernels/csrc/scatter_rows.cu",
             "replaces": f"dgcnn_tpu/kernels/{tpu}",
             "launches": trained["launches"][name],
             "max_abs_err": max(r["max_abs_err"] for r in scatter[name]),
-            **{k_: timed[k_] for k_ in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                         "library_ms")}})
+            **{k_: timed[k_] for k_ in timing},
+            **(c4_case(scatter[name]) if name == "scatter_add_rows" else {})})
     # the gather kernel on the train path (its launches in phase 7's
     # train() run, 3 per step); the split kNN on
     # Path B, knn_packed(..., splits=s), at C=64 with 8 splits (the same
@@ -1398,7 +1498,7 @@ def main() -> int:
         "source": "dgcnn_tpu_torch/kernels/csrc/gather_rows.cu",
         "replaces": "dgcnn_tpu/kernels/gather_pallas.py:53",
         "launches": trained["launches"]["gather_rows"], "max_abs_err": 0.0,
-        **{k_: timed[k_] for k_ in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}})
+        **{k_: timed[k_] for k_ in timing}, **c4_case(gather)})
     timed = pick(split, "float C=64 self splits 8")
     b_ms, b_by = bound(bnc4 * (64 + 1 + 1 + K), 2.0 * B * N * N * 64)
     kernels.append({

@@ -7,8 +7,11 @@ package reaches it from ``ops/edgeconv.py::_gather_impl`` when the
 environment sets ``DGCNN_GATHER_IMPL=pallas``; the port's
 ``ops/edgeconv.py::_gather`` sends every gather of the training forward
 here (stages 1-2 in ``gather_neighbors``, stage 3 in
-``edge_stage_tail_train``), with no knob: on the card the kernel is no
-slower than ``torch.gather`` and returns the same bits.
+``edge_stage_tail_train``), with no knob: the kernel returns
+``torch.gather``'s bits and is faster at both widths the port runs
+(``scripts/torch_row_kernels.py``, B=8, M=210000, kNN-of-blocks and
+uniform indices, on an H100 80GB HBM3 at 700 W: 0.0125-0.0170 against
+0.0302-0.0304 ms at C=4, 0.156-0.160 against 0.317-0.318 ms at C=64).
 
 :func:`gather_rows` launches the CUDA kernel (``csrc/gather_rows.cu``) on
 CUDA tensors, counted in ``gather_rows.launches``, and runs

@@ -70,12 +70,6 @@ def _stream(dev) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
 
 
-def _aligned(t: torch.Tensor) -> torch.Tensor:
-    """Contiguous, with a 16-byte aligned start (the float4 loads)."""
-    t = t.contiguous()
-    return t if t.data_ptr() % 16 == 0 else t.clone()
-
-
 def scatter_add_rows(dy: torch.Tensor, idx: torch.Tensor, n: int, *,
                      pred: torch.Tensor | None = None) -> torch.Tensor:
     """``out[b, idx[b, m]] += dy[b, m]``: dy (B, M, C) float32, idx (B, M)
@@ -94,7 +88,7 @@ def scatter_add_rows(dy: torch.Tensor, idx: torch.Tensor, n: int, *,
     if dy.dtype != torch.float32 or idx.dtype != torch.int32 or idx.device != dy.device:
         raise ValueError(f"dy must be float32 and idx int32, both on {dy.device}")
     b, m, c = dy.shape
-    dy, idx = _aligned(dy), idx.contiguous()
+    dy, idx = dy.contiguous(), idx.contiguous()
     flag = _build.predicate(pred, dy.device)
     out = torch.zeros((b, n, c), dtype=torch.float32, device=dy.device)
     err = _build.lib().dgcnn_scatter_add_rows(

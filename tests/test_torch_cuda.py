@@ -277,19 +277,70 @@ def test_model_on_cuda_matches_cpu_plain_versions(dev):
     assert (got - want).abs().max().item() <= 1e-3
 
 
-@pytest.mark.parametrize("c", [4, 5, 64])
-def test_scatter_add_rows_kernel_equals_plain(dev, c):
+def _shifted(dev, a, shift):
+    """``a`` on the card as a contiguous view that starts ``shift`` elements
+    into its buffer: shift 1 leaves it 4-byte but not 16-byte aligned."""
+    flat = torch.zeros(a.size + shift, dtype=torch.from_numpy(a[:0]).dtype, device=dev)
+    flat[shift:] = torch.from_numpy(np.ascontiguousarray(a)).reshape(-1).to(dev)
+    return flat[shift:].view(a.shape)
+
+
+# rows per thread is 4 and a block takes 1024 slots, so M = 3001 and 4097
+# leave ragged tails; C = 1, 3, 68 and the misaligned views take the
+# 4-byte or generic paths, C = 4 and 64 the widths the port runs
+ROW_CASES = [  # (b, m, n, c, shift of (values, idx))
+    *[(2, 3001, 390, c, (0, 0)) for c in (1, 3, 4, 5, 8, 64, 68, 128)],
+    (2, 0, 390, 4, (0, 0)), (2, 0, 390, 64, (0, 0)),             # M = 0
+    (1, 4097, 1000, 64, (0, 0)), (8, 4097, 1000, 4, (0, 0)),     # B = 1, B = 8
+    (8, 4097, 1000, 64, (0, 0)),
+    (2, 3001, 390, 4, (1, 0)), (2, 3001, 390, 64, (1, 0)),       # misaligned values
+    (2, 3001, 390, 4, (0, 1)), (2, 3001, 390, 64, (0, 1)),       # misaligned indices
+]
+
+
+@pytest.mark.parametrize("b, m, n, c, shift", ROW_CASES)
+def test_scatter_add_rows_kernel_equals_plain(dev, b, m, n, c, shift):
     from dgcnn_tpu_torch.kernels.scatter_rows import scatter_add_rows, scatter_add_rows_plain
 
-    rng = np.random.default_rng(c)
-    dy, = _on(dev, rng.standard_normal((2, 3000, c)).astype(np.float32))
-    idx, = _on(dev, rng.integers(-2, 400, (2, 3000)).astype(np.int32))  # some out of range
+    rng = np.random.default_rng(m + c)
+    dy = _shifted(dev, rng.standard_normal((b, m, c)).astype(np.float32), shift[0])
+    # some out of range: they clamp
+    idx = _shifted(dev, rng.integers(-2, n + 10, (b, m)).astype(np.int32), shift[1])
     before = scatter_add_rows.launches
-    got = scatter_add_rows(dy, idx, 390)
+    got = scatter_add_rows(dy, idx, n)
     torch.cuda.synchronize()
     assert scatter_add_rows.launches == before + 1
     # atomics: the sum order changes from run to run
-    torch.testing.assert_close(got, scatter_add_rows_plain(dy, idx, 390), atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(got, scatter_add_rows_plain(dy, idx, n), atol=1e-5, rtol=1e-5)
+    no = torch.zeros((), dtype=torch.bool, device=dev)
+    assert not scatter_add_rows(dy, idx, n, pred=no).any()  # the predicate: zeros
+
+
+@pytest.mark.parametrize("values", ["integers", "floats"])
+@pytest.mark.parametrize("c", [1, 4, 64])
+def test_scatter_add_rows_kernel_all_rows_to_one_target(dev, c, values):
+    """Every index equal: all B*M rows of an element add into one row, the
+    most contention the reductions can meet. Integer values keep every
+    partial sum exact in FP32, so any order gives the same bits and a lost
+    or doubled add shows. On floats each of the two sums (the kernel's and
+    index_add_'s, both atomic) is within (m - 1) * 2^-24 * sum |dy| of the
+    exact one (recursive summation's bound), so they differ by at most
+    twice that."""
+    from dgcnn_tpu_torch.kernels.scatter_rows import scatter_add_rows, scatter_add_rows_plain
+
+    b, m, n = 2, 6001, 50
+    rng = np.random.default_rng(c)
+    a = (rng.integers(-8, 9, (b, m, c)) if values == "integers"
+         else rng.standard_normal((b, m, c))).astype(np.float32)
+    dy, idx = _on(dev, a, np.full((b, m), 7, np.int32))
+    got = scatter_add_rows(dy, idx, n)
+    want = scatter_add_rows_plain(dy, idx, n)
+    if values == "integers":
+        assert torch.equal(got, want)
+    else:
+        atol = 2 * (m - 1) * 2.0 ** -24 * dy.abs().sum(1).max().item()
+        torch.testing.assert_close(got, want, atol=atol, rtol=0)
+    assert not got[:, :7].any() and not got[:, 8:].any()
 
 
 def test_scatter_stage_tail_kernel_equals_plain(dev):
@@ -334,16 +385,17 @@ def test_train_step_on_cuda_matches_cpu_plain_versions(dev):
         assert (grads[0][k] - want).norm().item() / max(want.norm().item(), floor) <= 1e-2, k
 
 
-@pytest.mark.parametrize("b, n, m, c", [
-    (2, 3000, 90000, 4), (2, 3000, 90000, 64),  # the stage widths
-    (3, 1001, 12345, 3), (1, 77, 301, 64),      # ragged; C=3 takes the scalar path
+@pytest.mark.parametrize("b, m, n, c, shift", [
+    (2, 90000, 3000, 4, (0, 0)), (2, 90000, 3000, 64, (0, 0)),  # the stage widths
+    (3, 12345, 1001, 3, (0, 0)), (1, 301, 77, 64, (0, 0)),      # ragged
+    *ROW_CASES,
 ])
-def test_gather_rows_kernel_equals_plain(dev, b, n, m, c):
+def test_gather_rows_kernel_equals_plain(dev, b, m, n, c, shift):
     from dgcnn_tpu_torch.kernels.gather_rows import gather_rows, gather_rows_plain
 
     rng = np.random.default_rng(n + c)
-    table, = _on(dev, rng.standard_normal((b, n, c)).astype(np.float32))
-    idx, = _on(dev, rng.integers(-5, n + 5, (b, m)).astype(np.int32))  # some clamp
+    table = _shifted(dev, rng.standard_normal((b, n, c)).astype(np.float32), shift[0])
+    idx = _shifted(dev, rng.integers(-5, n + 5, (b, m)).astype(np.int32), shift[1])  # some clamp
     before = gather_rows.launches
     got = gather_rows(table, idx)
     torch.cuda.synchronize()

@@ -13,6 +13,8 @@ from dgcnn_tpu.kernels.gather_pallas import gather_rows as jax_gather_rows
 from dgcnn_tpu.ops.edgeconv import gather_neighbors as jax_gather_neighbors
 from dgcnn_tpu_torch.kernels.gather_rows import gather_rows, gather_rows_plain
 from dgcnn_tpu_torch.ops import edgeconv
+from dgcnn_tpu_torch.ops.knn import knn
+from torch_port_helpers import sorted_blocks
 
 
 def _table_and_idx(seed, b, n, m, c):
@@ -34,6 +36,22 @@ def test_plain_matches_jax_kernel(b, n, m, c, chunk):
                                       interpret=True))
     got = gather_rows_plain(torch.from_numpy(table), torch.from_numpy(idx)).numpy()
     assert got.shape == (b, m, c)
+    assert got.tobytes() == want.tobytes()
+
+
+@pytest.mark.parametrize("c", [4, 64])
+def test_plain_on_knn_indices_matches_jax_kernel(c):
+    """The indices the CUDA kernel is built around: the port's plain kNN of
+    x-sorted blocks (neighbouring queries read overlapping rows), at the
+    stage widths; bit for bit."""
+    b, n, k = 2, 300, 20
+    pts = sorted_blocks(b, n, seed=c)
+    idx = knn(torch.from_numpy(pts), k).reshape(b, n * k)
+    table = pts if c == 4 else np.random.default_rng(c).standard_normal(
+        (b, n, c)).astype(np.float32)
+    want = np.asarray(jax_gather_rows(jnp.asarray(table), jnp.asarray(idx.numpy()),
+                                      chunk=600, interpret=True))
+    got = gather_rows(torch.from_numpy(table), idx).numpy()
     assert got.tobytes() == want.tobytes()
 
 

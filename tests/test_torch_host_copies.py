@@ -31,7 +31,8 @@ from torch_port_helpers import jax_weights, write_scene
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PORT_SOURCES = sorted(str(p.relative_to(REPO)) for p in (REPO / "dgcnn_tpu_torch").rglob("*.py"))
-SOURCES = PORT_SOURCES + ["chip_smoke.py", "scripts/torch_profile_forward.py"]
+SOURCES = PORT_SOURCES + ["chip_smoke.py"] + sorted(
+    str(p.relative_to(REPO)) for p in (REPO / "scripts").glob("torch_*.py"))
 
 
 def _forbidden(module: str) -> bool:

@@ -22,6 +22,8 @@ from dgcnn_tpu_torch.kernels.scatter_rows import (
     scatter_stage_tail_rows_plain,
 )
 from dgcnn_tpu_torch.ops.edgeconv import gather_neighbors
+from dgcnn_tpu_torch.ops.knn import knn
+from torch_port_helpers import sorted_blocks
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 
@@ -49,6 +51,20 @@ def test_scatter_add_rows_plain_matches_jax_kernel(b, m, c, n, dup):
     xla = np.asarray(jnp.zeros((b, n, c)).at[jnp.arange(b)[:, None], jnp.asarray(idx)]
                      .add(jnp.asarray(dy)))
     np.testing.assert_allclose(got, xla, **TOL)
+
+
+@pytest.mark.parametrize("c", [4, 64])
+def test_scatter_add_rows_on_knn_indices_matches_jax_kernel(c):
+    """The indices the CUDA kernel is built around: the port's plain kNN of
+    x-sorted blocks (each row a target of ~k rows of nearby queries, the
+    rows of one query's neighbours consecutive), at the stage widths."""
+    b, n, k = 2, 300, 20
+    idx = knn(torch.from_numpy(sorted_blocks(b, n, seed=c)), k).reshape(b, n * k)
+    dy = np.random.default_rng(c).standard_normal((b, n * k, c)).astype(np.float32)
+    got = scatter_add_rows(torch.from_numpy(dy), idx, n).numpy()
+    want = np.asarray(jax_scatter_add_rows(jnp.asarray(dy), jnp.asarray(idx.numpy()), n,
+                                           chunk=512, interpret=True))
+    np.testing.assert_allclose(got, want, **TOL)
 
 
 def test_scatter_add_rows_plain_is_index_add():
