@@ -65,6 +65,12 @@ feature tables, and through a forced repair, a window overflow, a budget
 overflow and an unsorted batch), in phases 3 (one tile served in each
 mode, launch counts asserted), 5, 6 and 7.
 
+Phase 2 holds the banded kNN kernel bit for bit against its plain version
+(indices and k-th keys) on integer inputs at more geometries
+(``BANDED_GEOMETRIES``: ragged N, B=1 and 8, query tiles 32-512, 16-192
+windows, cap 4/6/8, every kernel width, both of its kernels) and checks
+that with a False predicate it leaves its outputs as they were; its C=4
+case is timed by ``cuda_ms_many`` and carried in its row as ``"c4"``.
 Phase 2 also holds the two scatter kernels of the training backward
 against their plain versions, with kNN indices of ``make_blocks`` batches
 and uniform random ones; the training forward's row gather
@@ -114,6 +120,23 @@ def bound(nbytes: float, flops: float) -> tuple[float, str]:
 
 def log(*a):
     print(*a, flush=True)
+
+
+def band_pairs(band: int, qt: int, n: int = N) -> int:
+    """(query, band row below N) pairs of one cloud's banded kNN: each query
+    scores its tile's band rows, and a padding row needs no dot."""
+    from dgcnn_tpu_torch.kernels.knn_banded import band_starts
+
+    n_pad = -(-n // 128) * 128
+    return sum(min(qt, n - i * qt) * (min(s + band, n) - s)
+               for i, s in enumerate(band_starts(-(-n // qt) * qt, qt, n_pad, band)))
+
+
+def banded_bound(c: int, band: int, qt: int) -> tuple[float, str]:
+    """Bound of the banded kNN over a (B, N, c) batch: the rows and norms
+    read, the indices and k-th keys written, once each; one FMA (2
+    operations) per channel of each pair :func:`band_pairs` counts."""
+    return bound(4.0 * B * N * (c + 1 + K + 1), 2.0 * B * band_pairs(band, qt) * c)
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -289,9 +312,10 @@ def _compare(name, x, q, got, want, int_valued):
 
 
 def _case(name, x, q, int_valued, run, plain, results, reps=20, plain_reps=3,
-          extra=None):
+          extra=None, queued=False):
     """One kernel check: run both, compare (plus ``extra(got, want)``),
-    time both, record."""
+    time both, record. ``queued``: time the kernel by :func:`cuda_ms_many`
+    (kernels of tens of microseconds), else both by :func:`cuda_ms`."""
     import torch
 
     got = run()
@@ -303,8 +327,10 @@ def _case(name, x, q, int_valued, run, plain, results, reps=20, plain_reps=3,
     if isinstance(got, tuple):
         got, want = got[0], want[0]
     agree, err = _compare(name, x, q, got, want, int_valued)
-    ms = cuda_ms(run, reps)
-    plain_ms = cuda_ms(plain, plain_reps)
+    if queued:  # the plain version (tens of ms) by one event pair per call
+        ms, plain_ms = cuda_ms_many(run), cuda_ms(plain, plain_reps)
+    else:
+        ms, plain_ms = cuda_ms(run, reps), cuda_ms(plain, plain_reps)
     log(f"{name}: agreement {agree:.6f}, max |d2 diff| {err:.3e}, "
         f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
     results.append({"case": name, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
@@ -319,6 +345,64 @@ def grid_cloud(b: int, n: int, c: int, seed: int) -> np.ndarray:
     x = (np.round(rng.uniform(0.0, 1.0, (b, n, c)) * spans * 64.0) / 64.0).astype(np.float32)
     order = np.argsort(x[..., 0], axis=1, kind="stable")
     return np.ascontiguousarray(np.take_along_axis(x, order[..., None], axis=1))
+
+
+# the banded kernel's geometries beyond the two production ones: (c, b, n,
+# band, n_win, cap, query tile) — ragged N, one and eight clouds, query
+# tiles of 32-512 rows (32- and 64-query blocks), 16-192 windows (one and
+# several rounds of 64), cap 4/6/8, every kernel width (the fused kernel
+# at C <= 8, the two-phase one above), windows shorter than cap, and the
+# smallest launch geometry (shared memory near the limit)
+BANDED_GEOMETRIES = (
+    (3, 2, 4500, 512, 16, 8, 128), (4, 1, 7000, 2048, 64, 6, 512),
+    (8, 1, 4500, 1024, 32, 4, 32), (16, 1, 7000, 2048, 16, 8, 128),
+    (32, 8, 4500, 1024, 64, 4, 384), (64, 2, 4500, 4096, 32, 8, 512),
+    (5, 1, 4500, 256, 64, 6, 128), (4, 1, 4500, 1536, 128, 4, 256),
+    (64, 1, 4500, 384, 192, 8, 384), (64, 8, 4500, 4096, 64, 6, 384),
+    (4, 8, 4500, 2048, 64, 6, 512), (32, 1, 4500, 1024, 64, 6, 160),
+    (64, 1, 4500, 1536, 96, 4, 384),
+)
+
+
+def banded_geometries(rng) -> None:
+    """The banded kernel bit for bit against its plain version (indices and
+    k-th keys) on integer inputs at :data:`BANDED_GEOMETRIES`; and with a
+    False predicate it leaves its outputs as they were: two launches on
+    the same prepared inputs, the first one's outputs filled with -7 and
+    freed (after ``empty_cache``, so the allocator hands the same blocks to
+    the second)."""
+    import torch
+
+    from dgcnn_tpu_torch.kernels.knn_banded import (
+        knn_banded_raw, knn_banded_raw_plain, launch_geometry, launch_kernel)
+
+    dev = torch.device("cuda")
+    for c, b, n, band, n_win, cap, qt in BANDED_GEOMETRIES:
+        x = torch.from_numpy(rng.integers(0, 16, (b, n, c)).astype(np.float32)).to(dev)
+        kw = dict(band=band, n_win=n_win, cap=cap, query_tile=qt)
+        got, want = knn_banded_raw(x, K, **kw), knn_banded_raw_plain(x, K, **kw)
+        if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+            raise AssertionError(f"knn_banded C={c} B={b} N={n} {kw}: kernel != plain")
+    x = torch.from_numpy(rng.integers(0, 16, (B, N, 4)).astype(np.float32)).to(dev)
+    cn = (x * x).sum(-1)
+    kw = dict(band=2048, query_tile=512, **BANDS)
+    g = launch_geometry(4, 2048, BANDS["n_win"], BANDS["cap"], 512)
+    no = torch.zeros((), dtype=torch.bool, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    idx0, kth0 = launch_kernel(x, cn, K, geometry=g, pred=no, **kw)
+    idx0.fill_(-7)
+    kth0.fill_(-7)
+    ptrs = (idx0.data_ptr(), kth0.data_ptr())
+    del idx0, kth0
+    idx1, kth1 = launch_kernel(x, cn, K, geometry=g, pred=no, **kw)
+    torch.cuda.synchronize()
+    if (idx1.data_ptr(), kth1.data_ptr()) != ptrs:
+        raise AssertionError("knn_banded pred=0 check: the allocator moved the outputs")
+    if not ((idx1 == -7).all() and (kth1 == -7).all()):
+        raise AssertionError("knn_banded: a False predicate wrote the outputs")
+    log(f"knn_banded: {len(BANDED_GEOMETRIES)} more geometries bit-equal to the plain "
+        "version on integers; pred=0 leaves the outputs")
 
 
 def phase_kernels():
@@ -360,7 +444,9 @@ def phase_kernels():
             _case(f"knn_banded {name}", x, x, int_valued,
                   lambda x=x, kw=kw: knn_banded_raw(x, K, **kw),
                   lambda x=x, kw=kw: knn_banded_raw_plain(x, K, **kw),
-                  res["knn_banded"], extra=equal_keys if int_valued else None)
+                  res["knn_banded"], extra=equal_keys if int_valued else None,
+                  queued=c == 4)
+    banded_geometries(rng)
 
     q = ints[4][:, torch.randperm(N, device=dev)[:256]]  # the repair's queries
     _case("knn_exact int C=4, 256 queries", ints[4], q, True,
@@ -1422,7 +1508,7 @@ def main() -> int:
                                      2.0 * B * N * K * 64)),
         ("knn_banded", "knn_banded.cu", "knn_pallas.py:405", knn_res["knn_banded"],
          pick(knn_res["knn_banded"], "knn_banded float C=64 band 4096"),
-         bound(bnc4 * (64 + K + 1), 2.0 * B * N * 4096 * 64)),
+         banded_bound(64, 4096, 384)),
         ("knn_exact", "knn_exact.cu", "knn_pallas.py:770", knn_res["knn_exact"],
          pick(knn_res["knn_exact"], "knn_exact int C=4, 256 queries"),
          bound(bnc4 * 4 + 4.0 * B * 256 * (4 + K), 2.0 * B * 256 * N * 4)),
@@ -1443,20 +1529,13 @@ def main() -> int:
     # band 2048. The capped kNN scores all N candidates per query (padding
     # rows score -inf without a dot); the flat exact kNN's self-kNN runs
     # at N=40 000, B=1
-    from dgcnn_tpu_torch.kernels.knn_banded import band_starts
-
-    band4, n_pad, n_big = 2048, -(-N // 128) * 128, 40000
-
-    def band_pairs(qt):
-        return sum(min(qt, N - i * qt) * (min(s + band4, N) - s)
-                   for i, s in enumerate(band_starts(-(-N // qt) * qt, qt, n_pad, band4)))
-
+    n_big = 40000
     c4_bounds = {
         "knn_capped C=4": bound(bnc4 * (4 + K), 2.0 * B * N * N * 4),
-        "knn_banded C=4 band 2048": bound(bnc4 * (4 + K + 1), 2.0 * B * band_pairs(512) * 4),
+        "knn_banded C=4 band 2048": banded_bound(4, 2048, 512),
         "knn_exact C=4 self N=40000": bound(4.0 * n_big * (4 + K), 2.0 * n_big * n_big * 4),
         "knn_exact_banded C=4 band 2048": bound(bnc4 * (4 + 1 + K + 2),
-                                                2.0 * B * band_pairs(256) * 4),
+                                                2.0 * B * band_pairs(2048, 256) * 4),
         "knn_packed C=4": bound(bnc4 * (4 + 1 + 1 + K), 2.0 * B * N * N * 4),
     }
     # each kernel's launches on the path that runs it: the default serving
@@ -1473,6 +1552,12 @@ def main() -> int:
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
     } for name, src, tpu, cases, timed, (b_ms, b_by) in rows]
     timing = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    # the banded kNN's C=4 width (stage 1), beside its C=64 one
+    c4 = pick(knn_res["knn_banded"], "knn_banded float C=4 band 2048")
+    next(r for r in kernels if r["name"] == "knn_banded")["c4"] = {
+        "ms": c4["ms"], "plain_ms": c4["plain_ms"],
+        "bound_ms": c4_bounds["knn_banded C=4 band 2048"][0],
+        "bound_by": c4_bounds["knn_banded C=4 band 2048"][1], "library_ms": None}
 
     def c4_case(cases):  # the row kernels' C=4 width beside the C=64 one
         return {"c4": {k_: pick(cases, "C=4 kNN of blocks")[k_] for k_ in timing}}

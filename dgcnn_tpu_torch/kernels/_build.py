@@ -37,7 +37,7 @@ SIGNATURES = {
     "dgcnn_knn_capped": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                          _I, _I, _P),
     "dgcnn_knn_banded": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                         _I, _I, _P),
+                         _I, _I, _I, _I, _I, _I, _P),
     "dgcnn_knn_exact": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "dgcnn_knn_exact_banded": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                _I, _I, _I, _I, _I, _P),

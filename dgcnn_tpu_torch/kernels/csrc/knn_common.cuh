@@ -1,7 +1,8 @@
 // What the kNN kernels share: the FP32 score of the exact kernels
 // (knn_exact.cu, knn_exact_banded.cu) and the packed one (knn_packed.cu),
-// its order-exact int32 key, and the band start of a query tile (the
-// banded kernels, knn_banded.cu and knn_exact_banded.cu).
+// its order-exact int32 key, the band start of a query tile (the banded
+// kernels, knn_banded.cu and knn_exact_banded.cu), and the asynchronous
+// copies into shared memory that knn_banded.cu stages its tiles with.
 //
 //   score(q, o) = 2 * <q, x_o> - |x_o|^2
 //
@@ -63,4 +64,32 @@ __device__ __forceinline__ int band_start(int tile, int qt, int n_pad,
   const int raw = tile * qt + qt / 2 - band / 2;
   if (raw < 0) return 0;  // floor-to-128 of a negative row is negative
   return min((raw / 128) * 128, n_pad - band);
+}
+
+// cp.async: `bytes` (16, or 4) from global to shared memory without a
+// register round trip; when `ok` is false nothing is read and the
+// destination is zero-filled (`gmem` must still be a valid address). A
+// thread commits its copies as a group and waits for all but the newest
+// `N` groups; a barrier then makes every thread's copies visible.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool ok) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(ok ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem, bool ok) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(ok ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }

@@ -43,6 +43,9 @@ from dgcnn_tpu_torch.kernels.knn_exact import knn_exact
 
 _KERNEL_CAPS = (4, 6, 8)
 _ROW_ALIGN = 128  # rows are padded, and bands start, at multiples of this
+_SLOTS = 64  # the kernel's windows per round: the rows of one j-step
+_TILE_ROWS = 4 * _SLOTS  # the two-phase kernel's tile: 4 j-steps
+SMEM_LIMIT = 232448  # shared memory a Hopper block may take (bytes)
 
 
 def _round_up(v: int, m: int) -> int:
@@ -96,6 +99,58 @@ def _check_raw(n: int, k: int, band: int, n_win: int, query_tile: int) -> int:
     return n_pad
 
 
+def _row_stride4(cv: int) -> int:
+    """A staged row's stride in float4 (odd: conflict-free 16-byte reads)."""
+    v = cv // 4
+    return v if v % 2 else v + 1
+
+
+def smem_bytes(cv: int, n_win: int, cap: int, qb: int, jt: int, nbuf: int,
+               two_phase: int) -> int:
+    """The kernel's shared memory for a launch geometry, as
+    ``csrc/knn_banded.cu::smem_bytes`` computes it: the staging (two-phase:
+    the queries, one tile of 256 rows, their norms and the key tile; fused:
+    the queries at C >= 16, ``nbuf`` tiles of ``jt`` j-steps of 64 rows and
+    their norms) and the per-window lists (``cap`` keys per query and
+    window), which with one round of windows (``n_win <= 64``) alias the
+    staging and end in a sentinel each."""
+    xs4 = _row_stride4(cv)
+    if two_phase:
+        staging = 16 * (qb + _TILE_ROWS) * xs4 + 4 * _TILE_ROWS + 4 * qb * (_TILE_ROWS + 8)
+    else:
+        rows = jt * _SLOTS
+        staging = 16 * ((0 if cv <= 8 else qb * xs4) + nbuf * rows * xs4) + 4 * nbuf * rows
+    if n_win <= _SLOTS:
+        return max(staging, 4 * qb * n_win * (cap + 1))
+    return staging + 4 * qb * n_win * cap
+
+
+def launch_geometry(cv: int, band: int, n_win: int, cap: int,
+                    query_tile: int) -> tuple[int, int, int, int]:
+    """``(qb, jt, nbuf, two_phase)`` of a kernel launch: queries per block
+    (a block's queries share one band start, so ``qb`` divides the query
+    tile), j-steps per staged tile, tile buffers, and which kernel. At C >=
+    16 the two-phase kernel (tiles of 4 j-steps, one buffer), with 64
+    queries where they divide the query tile, else 32. At C <= 8 the fused
+    kernel with 32 queries and 16 j-steps, double-buffered unless one tile
+    holds the band: the fastest on the H100 at the default path's two
+    shapes (``scripts/torch_knn_banded.py --variants``). Where the shared
+    memory would exceed :data:`SMEM_LIMIT`: 32 queries, then the fused
+    kernel with 32 queries and one j-step, then one buffer: less than the
+    kernel this one replaced (one query per lane) took for the same shape."""
+    w_sz = band // n_win
+    if cv > 8:
+        qb = 64 if query_tile % 64 == 0 else 32
+        tries = [(qb, 4, 1, 1), (32, 4, 1, 1)]
+    else:
+        jt = min(w_sz, 16)
+        tries = [(32, jt, 1 if jt == w_sz else 2, 0)]
+    for g in tries + [(32, 1, 2, 0), (32, 1, 1, 0)]:
+        if smem_bytes(cv, n_win, cap, *g) <= SMEM_LIMIT:
+            return g
+    return 32, 1, 1, 0  # too large for any geometry: the launch reports it
+
+
 def knn_banded_raw_plain(
     x: torch.Tensor, k: int, *, band: int, n_win: int, cap: int,
     query_tile: int,
@@ -142,9 +197,15 @@ def knn_banded_raw(
     (B, N) int32)``. Launches the CUDA kernel on a CUDA tensor (counted in
     ``knn_banded_raw.launches``) and the plain version on a CPU tensor.
     ``pred``: an optional 0-d bool tensor; where it is False no work is
-    done and the result is undefined."""
+    done and the result is undefined.
+
+    On an NVIDIA H100 80GB HBM3 at 700 W, B=8, N=7000, k=30, 64 windows,
+    cap 6, the kernel alone (device-only, ``scripts/torch_knn_banded.py``)
+    takes 1.170-1.172 ms at C=64, band 4096 (the two-phase kernel) and
+    0.2017-0.2019 ms at C=4, band 2048 (the fused one); through this
+    wrapper, with its norm reduction, 1.196 and 0.208-0.209 ms."""
     b, n, c = x.shape
-    n_pad = _check_raw(n, k, band, n_win, query_tile)
+    _check_raw(n, k, band, n_win, query_tile)
     if x.device.type == "cpu":
         if _build.skipped(pred):
             return (torch.zeros((b, n, k), dtype=torch.int32),
@@ -163,14 +224,31 @@ def knn_banded_raw(
     cn = (x * x).sum(-1).contiguous()  # the plain version's reduction
     if cv != c:
         x = torch.nn.functional.pad(x, (0, cv - c))
-    x = x.contiguous()
+    return launch_kernel(x.contiguous(), cn, k, band=band, n_win=n_win, cap=cap,
+                         query_tile=query_tile,
+                         geometry=launch_geometry(cv, band, n_win, cap, query_tile),
+                         pred=pred)
+
+
+def launch_kernel(
+    x: torch.Tensor, cn: torch.Tensor, k: int, *, band: int, n_win: int,
+    cap: int, query_tile: int, geometry: tuple[int, int, int, int],
+    pred: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """One launch of the kernel on prepared CUDA tensors: ``x`` (B, N, cv)
+    contiguous and zero-padded to a kernel width, ``cn`` (B, N) its row
+    norms; ``geometry`` as :func:`launch_geometry` returns it. Counted in
+    ``knn_banded_raw.launches``. ``k`` = 0 runs the scan without the
+    merge (``scripts/torch_knn_banded.py`` times the merge's share so)."""
+    b, n, cv = x.shape
     flag = _build.predicate(pred, x.device)
     idx = torch.empty((b, n, k), dtype=torch.int32, device=x.device)
     kth = torch.empty((b, n), dtype=torch.int32, device=x.device)
     err = _build.lib().dgcnn_knn_banded(
         x.data_ptr(), cn.data_ptr(), idx.data_ptr(), kth.data_ptr(),
-        None if flag is None else flag.data_ptr(), b, n, cv, k, n_pad, band,
-        n_win, cap, query_tile, (band - 1).bit_length(),
+        None if flag is None else flag.data_ptr(), b, n, cv, k,
+        _round_up(n, _ROW_ALIGN), band, n_win, cap, query_tile,
+        (band - 1).bit_length(), *geometry,
         ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream),
     )
     _build.check(err, "knn_banded")

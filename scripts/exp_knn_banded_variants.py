@@ -1,0 +1,154 @@
+"""Build variants of the banded kNN kernel (``csrc/knn_banded.cu`` with a
+constant or a line changed) and time them beside the shipped build, on one
+GPU, at the default path's two shapes.
+
+    python scripts/exp_knn_banded_variants.py [NAME ...]
+
+Each variant is a list of text replacements (``VARIANTS``) applied to a
+copy of ``csrc/`` under ``build/knn_banded_variants/NAME/``; the copy's
+``knn_banded.cu`` and ``knn_capped.cu`` (which holds the error-string
+entry point) are compiled with the port's flags into one library. The
+script prints the compiler's register, stack and spill lines of the C=4
+and C=64 cap-6 instances, holds the variant's indices and k-th keys
+``torch.equal`` to the shipped kernel's (except the ``diag_`` variants,
+which change the result to see what a part of the kernel costs), and times
+it device-only (``chip_smoke.cuda_ms_many`` of the kernel alone) at the
+shipped ``launch_geometry`` and ``torch_knn_banded.GEOMETRIES``,
+and with k = 0 (the scan without the merge). Without arguments it runs
+every variant. Prints one JSON line with the card's name and power limit.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import importlib.util
+import json
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+
+HERE = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(HERE))
+
+
+VARIANTS = {
+    # the fused kernel (C <= 8) with 4 windows per thread instead of 2
+    "fused_rm4": [("return CV <= 8 ? 2 : 4;", "return 4;")],
+    # the two-phase kernel's 2-channel steps of the dot loop unrolled
+    "tile_unroll1": [("constexpr int kC2Unroll = 4;", "constexpr int kC2Unroll = 1;")],
+    "tile_unroll2": [("constexpr int kC2Unroll = 4;", "constexpr int kC2Unroll = 2;")],
+    # what the insertions cost: each key is folded into the list's head instead
+    "diag_no_insert": [
+        ("insert<CAP>(top[a][c], v);", "top[a][c][0] ^= v;"),
+        ("insert<CAP>(top[i], keys[(pq + pstep * i) * kKeyStride + jj * kSlots + pw]);",
+         "top[i][0] ^= keys[(pq + pstep * i) * kKeyStride + jj * kSlots + pw];")],
+}
+
+
+def _build_variant(name: str, patches: list[tuple[str, str]], out_dir: Path):
+    from dgcnn_tpu_torch.kernels import _build
+
+    src_dir = out_dir / name
+    shutil.rmtree(src_dir, ignore_errors=True)
+    shutil.copytree(_build.CSRC, src_dir)
+    text = (src_dir / "knn_banded.cu").read_text()
+    for old, new in patches:
+        if old not in text:
+            raise ValueError(f"{name}: {old!r} is not in knn_banded.cu")
+        text = text.replace(old, new)
+    (src_dir / "knn_banded.cu").write_text(text)
+    nvcc = _build.nvcc_path()
+    objs, procs = [], []
+    for src in ("knn_banded.cu", "knn_capped.cu"):
+        obj = src_dir / f"{src}.o"
+        objs.append(str(obj))
+        procs.append(subprocess.Popen(
+            [nvcc, *_build.NVCC_FLAGS, "-c", "-o", str(obj), str(src_dir / src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    logs = [p.communicate(timeout=900)[0] for p in procs]
+    if any(p.returncode for p in procs):
+        raise RuntimeError(f"{name}: nvcc failed\n" + "\n".join(logs))
+    so = src_dir / "lib.so"
+    subprocess.run([nvcc, "-shared", "-o", str(so), *objs], check=True, timeout=300)
+    lines, keep = [], False
+    for line in logs[0].splitlines():
+        if "Compiling entry" in line:
+            keep = "kernelILi6ELi64E" in line or "kernelILi6ELi4E" in line
+            if keep:
+                lines.append(("two-phase" if "tile_kernel" in line else "fused")
+                             + " cap 6, C=" + ("64" if "Li64E" in line else "4"))
+        elif keep and ("Used" in line or "spill" in line):
+            lines.append(line.strip())
+    handle = ctypes.CDLL(str(so))
+    for fn, argtypes in _build.SIGNATURES.items():
+        if hasattr(handle, fn):
+            getattr(handle, fn).argtypes = list(argtypes)
+            getattr(handle, fn).restype = ctypes.c_int
+    handle.dgcnn_error_string.argtypes = [ctypes.c_int]
+    handle.dgcnn_error_string.restype = ctypes.c_char_p
+    return handle, lines
+
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    variants = {name: VARIANTS[name] for name in (argv or VARIANTS)}
+    spec = importlib.util.spec_from_file_location("chip_smoke_variants", HERE / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    spec = importlib.util.spec_from_file_location("torch_knn_banded", HERE / "scripts" /
+                                                  "torch_knn_banded.py")
+    tkb = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tkb)
+
+    import torch
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: the kernel variants run on one GPU")
+    from dgcnn_tpu_torch.kernels import _build
+    from dgcnn_tpu_torch.kernels import knn_banded as mod
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    dev, k = torch.device("cuda"), cs.K
+    rng = np.random.default_rng(0)
+    shapes = {
+        "C=4 band 2048": (torch.from_numpy(cs.make_blocks(cs.B, cs.N, seed=0)).to(dev), 2048, 512),
+        "C=64 band 4096": (torch.from_numpy(rng.standard_normal((cs.B, cs.N, 64), np.float32)).to(dev),
+                           4096, 384)}
+    want = {name: mod.knn_banded_raw(x, k, band=band, query_tile=qt, **cs.BANDS)
+            for name, (x, band, qt) in shapes.items()}
+    shipped = _build.lib()
+    results = {}
+    for vname, patches in variants.items():
+        handle, lines = _build_variant(vname, patches, HERE / "build" / "knn_banded_variants")
+        print(vname, *lines, sep="\n  ", file=sys.stderr)
+        _build._lib = handle
+        try:
+            row = {}
+            for name, (x, band, qt) in shapes.items():
+                cn = (x * x).sum(-1).contiguous()
+                kw = dict(band=band, query_tile=qt, **cs.BANDS)
+                g0 = mod.launch_geometry(x.shape[-1], band, kw["n_win"], kw["cap"], qt)
+                for g in sorted({g0, *tkb.GEOMETRIES[name]}):
+                    got = mod.launch_kernel(x, cn, k, geometry=g, **kw)
+                    if not vname.startswith("diag_") and not all(
+                            torch.equal(a, b) for a, b in zip(got, want[name])):
+                        raise AssertionError(f"{vname} {name} {g}: outputs differ")
+                    row[f"{name} " + "qb={} jt={} nbuf={} two_phase={}".format(*g)] = cs.cuda_ms_many(
+                        lambda g=g: mod.launch_kernel(x, cn, k, geometry=g, **kw))
+                row[f"{name} scan only"] = cs.cuda_ms_many(
+                    lambda: mod.launch_kernel(x, cn, 0, geometry=g0, **kw))
+            results[vname] = {"ptxas": lines, "ms": row}
+            print(json.dumps(row), file=sys.stderr)
+        finally:
+            _build._lib = shipped
+    print(json.dumps({"device": smi, "variants": results}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

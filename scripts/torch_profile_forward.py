@@ -44,6 +44,7 @@ GROUPS = (
     ("knn_exact_banded_kernel", "knn_exact_banded"),
     ("knn_packed_kernel", "knn_packed"),
     ("knn_banded_kernel", "knn_banded"),
+    ("knn_banded_tile_kernel", "knn_banded"),
     ("knn_capped_kernel", "knn_capped"),
     ("knn_exact_kernel", "knn_exact"),
     ("knn_split_merge", "knn_packed_split (merge)"),

@@ -87,11 +87,26 @@ def test_knn_kernel_refuses_unported_cases(dev):
     assert torch.equal(got, knn_exact_plain(x, 20))
 
 
-@pytest.mark.parametrize("c, band, n_win, cap, qt", [
-    (4, 2048, 64, 6, 512), (64, 4096, 64, 6, 384), (3, 512, 16, 8, 128),
-])
-def test_banded_kernel_equals_plain_on_integer_inputs(dev, c, band, n_win, cap, qt):
-    x, = _on(dev, np.random.default_rng(c).integers(0, 16, (2, 4500, c)).astype(np.float32))
+BANDED_CASES = [  # (c, b, n, band, n_win, cap, qt)
+    (4, 8, 7000, 2048, 64, 6, 512),   # stage 1 of the default path
+    (64, 8, 7000, 4096, 64, 6, 384),  # stages 2-3
+    (3, 2, 4500, 512, 16, 8, 128),    # the JAX tests' window geometry
+    (4, 1, 7000, 2048, 64, 6, 512),
+    (8, 1, 4500, 1024, 32, 4, 32),    # 32-query blocks
+    (16, 1, 7000, 2048, 16, 8, 128),
+    (32, 8, 4500, 1024, 64, 4, 384),
+    (64, 2, 4500, 4096, 32, 8, 512),
+    (5, 1, 4500, 256, 64, 6, 128),    # 4 rows per window < cap
+    (4, 1, 4500, 1536, 128, 4, 256),  # two rounds of 64 windows
+    (64, 1, 4500, 384, 192, 8, 384),  # the smallest launch geometry
+    (32, 1, 4500, 1024, 64, 6, 160),  # two-phase kernel, 32-query blocks
+    (64, 1, 4500, 1536, 96, 4, 384),  # two-phase kernel, two rounds of windows
+]
+
+
+@pytest.mark.parametrize("c, b, n, band, n_win, cap, qt", BANDED_CASES)
+def test_banded_kernel_equals_plain_on_integer_inputs(dev, c, b, n, band, n_win, cap, qt):
+    x, = _on(dev, np.random.default_rng(c + n).integers(0, 16, (b, n, c)).astype(np.float32))
     kw = dict(band=band, n_win=n_win, cap=cap, query_tile=qt)
     before = knn_banded_raw.launches
     idx, key = knn_banded_raw(x, 30, **kw)
@@ -99,6 +114,27 @@ def test_banded_kernel_equals_plain_on_integer_inputs(dev, c, band, n_win, cap, 
     assert knn_banded_raw.launches == before + 1
     want_idx, want_key = knn_banded_raw_plain(x, 30, **kw)
     assert torch.equal(idx, want_idx) and torch.equal(key, want_key)
+
+
+@pytest.mark.parametrize("c, band, qt", [(4, 2048, 512), (64, 4096, 384)])
+def test_banded_kernel_agrees_with_plain_on_floats(dev, c, band, qt):
+    """The production shapes on floats: cuBLAS sums the plain version's dots
+    in another order, so near-tied keys may swap; the swapped neighbours'
+    distances agree to the packed keys' resolution (2^-8 relative)."""
+    rng = np.random.default_rng(c)
+    x, = _on(dev, sorted_blocks(8, 7000, seed=3) if c == 4
+             else rng.standard_normal((8, 7000, 64)).astype(np.float32))
+    kw = dict(band=band, n_win=64, cap=6, query_tile=qt)
+    idx, _ = knn_banded_raw(x, 30, **kw)
+    want, _ = knn_banded_raw_plain(x, 30, **kw)
+    assert (idx == want).float().mean() >= 0.999
+
+    def d2(i):
+        nb = torch.gather(x, 1, i.long().reshape(8, -1, 1).expand(-1, -1, c)).reshape(8, 7000, 30, c)
+        return ((nb - x[:, :, None]) ** 2).sum(-1)
+
+    rel = ((d2(idx) - d2(want)).abs() / d2(want).abs().clamp_min(1e-6)).max()
+    assert rel <= 2.0 ** -8
 
 
 @pytest.mark.parametrize("m", [256, None])

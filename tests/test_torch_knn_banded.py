@@ -15,12 +15,17 @@ from dgcnn_tpu.kernels.knn_pallas import (
     knn_pallas,
     knn_pallas_banded,
 )
+from dgcnn_tpu_torch.kernels._build import KERNEL_WIDTHS
 from dgcnn_tpu_torch.kernels.knn_banded import (
+    SMEM_LIMIT,
     band_starts,
+    default_query_tile,
     knn_banded,
     knn_banded_raw,
     knn_banded_raw_plain,
+    launch_geometry,
     probe_rows,
+    smem_bytes,
 )
 from dgcnn_tpu_torch.kernels.knn_capped import knn_capped
 from dgcnn_tpu_torch.kernels.knn_exact import knn_exact, knn_exact_plain
@@ -63,6 +68,73 @@ def test_raw_plain_matches_jax_kernel_bits(n, c, band, n_win, cap):
                                     n_win=n_win, cap=cap, query_tile=qt)
     np.testing.assert_array_equal(idx.numpy(), np.asarray(want_idx))
     np.testing.assert_array_equal(key.numpy(), np.asarray(want_key))
+
+
+@pytest.mark.parametrize("c, band, qt", [(64, 4096, 384), (4, 2048, 512)])
+def test_raw_plain_matches_jax_kernel_at_the_production_windows(c, band, qt):
+    """The default path's windows (64 of them, cap 6) at stages 2-3 (C=64,
+    band 4096, query tile 384) and stage 1 (C=4, band 2048, tile 512)."""
+    x = sorted_cloud(np.random.default_rng(c), 1, 4500, c)
+    kw = dict(band=band, n_win=64, cap=6, query_tile=qt)
+    want_idx, want_key = _knn_banded_jit(jnp.asarray(x), 30, interpret=True,
+                                         hi_prec=True, **kw)
+    idx, key = knn_banded_raw_plain(torch.from_numpy(x), 30, **kw)
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(want_idx))
+    np.testing.assert_array_equal(key.numpy(), np.asarray(want_key))
+
+
+# (band, query tile) of the entry points (the model's bands 2048 / 4096
+# and knn_banded's default 3072, at the wrappers' default tiles) and of the
+# card tests (tests/test_torch_cuda.py::BANDED_CASES)
+_ENTRY_TILES = [(b, default_query_tile(b)) for b in (2048, 3072, 4096)]
+_TEST_TILES = [(2048, 512), (4096, 384), (512, 128), (1024, 32), (2048, 128),
+               (1024, 384), (4096, 512), (256, 128), (1536, 256), (384, 384),
+               (1024, 160), (1536, 384)]
+
+
+@pytest.mark.parametrize("band, qt", _ENTRY_TILES + _TEST_TILES)
+def test_launch_geometry_blocks_share_a_band_start(band, qt):
+    """A block's queries must lie in one query tile (one band start)."""
+    for cv in KERNEL_WIDTHS:
+        for n_win in (16, 32, 64, 128):
+            if band % n_win:
+                continue
+            for cap in (4, 6, 8):
+                qb, jt, nbuf, two_phase = launch_geometry(cv, band, n_win, cap, qt)
+                assert qt % qb == 0 and qb in (32, 64)
+                assert jt >= 1 and nbuf in (1, 2) and two_phase in (0, 1)
+                # the fused kernel takes 32-query blocks at C <= 8, the
+                # two-phase kernel runs at C >= 16 only
+                assert (qb == 32 and not two_phase) if cv <= 8 else True
+                assert smem_bytes(cv, n_win, cap, qb, jt, nbuf, two_phase) <= SMEM_LIMIT
+
+
+def test_launch_geometry_of_the_default_path():
+    """Stages 2-3 take the two-phase kernel with 64-query blocks, stage 1
+    the fused kernel with 32-query blocks and 16-j-step tiles."""
+    assert launch_geometry(64, 4096, 64, 6, 384) == (64, 4, 1, 1)
+    assert launch_geometry(4, 2048, 64, 6, 512) == (32, 16, 2, 0)
+
+
+def _lane_kernel_smem(cv: int, n_win: int, cap: int) -> int:
+    """The replaced kernel's shared memory (one query per lane, staging 16
+    candidates of up to 8 windows, 32 queries' lists)."""
+    rounds = -(-n_win // 8)
+    nw = -(-n_win // rounds)
+    return 4 * (16 * nw * cv + 16 * nw + 32 * (n_win * cap + 1))
+
+
+def test_launch_geometry_fits_wherever_the_lane_kernel_did():
+    """Every shape the replaced kernel (one query per lane) took, its
+    shared memory within the limit, gets a geometry that fits too."""
+    for cv in KERNEL_WIDTHS:
+        for cap in (4, 6, 8):
+            for n_win in range(1, 450):
+                for band in (128 * n_win // np.gcd(128, n_win), 4096 // n_win * n_win):
+                    if band < 128 or band % n_win or _lane_kernel_smem(cv, n_win, cap) > SMEM_LIMIT:
+                        continue
+                    g = launch_geometry(cv, band, n_win, cap, 384)
+                    assert smem_bytes(cv, n_win, cap, *g) <= SMEM_LIMIT, (cv, cap, n_win, band, g)
 
 
 def test_band_starts_match_jax():
