@@ -71,10 +71,17 @@ Phase 2 holds the banded kNN kernel bit for bit against its plain version
 windows, cap 4/6/8, every kernel width, both of its kernels) and checks
 that with a False predicate it leaves its outputs as they were; its C=4
 case is timed by ``cuda_ms_many`` and carried in its row as ``"c4"``.
-Phase 2 also holds the two scatter kernels of the training backward
-against their plain versions, with kNN indices of ``make_blocks`` batches
-and uniform random ones; the training forward's row gather
-(``kernels/gather_rows.py``) bit for bit; and the split packed kNN
+Phase 2 holds the fused stage and extrema kernels within 1e-5 of their
+plain versions on ``stage_cases``: the production shape with ``knn_capped``
+indices (spread over the cloud) and with forward-like ones (the banded kNN
+of ``make_blocks`` points at band 2048 and of C=64 features at band 4096),
+and ragged shapes (B=1, N=1001, k = 20, 30, 40, indices outside [0, N));
+both kernels are timed by ``cuda_ms_many`` at the production shape. Each
+row of the kernels' JSON line carries its bound's share of its time
+(``bound_share``). Phase 2 also holds the two scatter kernels of the
+training backward against their plain versions, with kNN indices of
+``make_blocks`` batches and uniform random ones; the training forward's
+row gather (``kernels/gather_rows.py``) bit for bit; and the split packed kNN
 (``knn_packed(..., splits=s)``) bit for bit on integer inputs, after which
 that entry point is driven on its own with the launch counters reset, and
 its routing to the flat kernel asserted. Every kernel's row in the JSON
@@ -408,9 +415,6 @@ def banded_geometries(rng) -> None:
 def phase_kernels():
     import torch
 
-    from dgcnn_tpu_torch.kernels.edgeconv_fused import (
-        edgeconv_fused_extrema, edgeconv_fused_extrema_plain,
-        edgeconv_fused_stage, edgeconv_fused_stage_plain, fold_bn)
     from dgcnn_tpu_torch.kernels.knn_banded import knn_banded_raw, knn_banded_raw_plain
     from dgcnn_tpu_torch.kernels.knn_capped import knn_capped, knn_capped_plain
     from dgcnn_tpu_torch.kernels.knn_exact import knn_exact, knn_exact_plain
@@ -511,42 +515,113 @@ def phase_kernels():
     if knn_packed.launches == before:
         raise AssertionError("knn_capped's small-input fallback did not launch knn_packed")
 
-    idx = knn_capped(feats, K)
-    table = torch.from_numpy(rng.standard_normal((B, N, 64), np.float32)).to(dev)
-    bvec = torch.from_numpy(rng.standard_normal((B, N, 64), np.float32)).to(dev)
-    w2 = torch.from_numpy(rng.uniform(-0.125, 0.125, (64, 64)).astype(np.float32)).to(dev)
+    return res, phase_fused(dev), phase_scatter(pts), phase_gather(pts), phase_split(pts)
+
+
+def stage_cases(dev) -> dict:
+    """The fused stage kernels' inputs, from one seed: seeded normal
+    ``table`` and ``bvec`` (B, N, 64), W2 uniform in +-1/8, three folded
+    BNs with scales of both signs; indices of the production shape (B=8,
+    N=7000, k=30) from ``knn_capped`` on seeded C=64 normals (spread over
+    the whole cloud), and forward-like ones, local in x-sorted order: the
+    banded kNN of ``make_blocks`` points at band 2048 (stage 1) and of the
+    C=64 normals at band 4096 (stage 2); then ragged cases, B=1, N=1001,
+    k = 20, 30, 40, with uniform indices of which a few lie outside
+    [0, N) (clamped). Each case: a dict of the wrappers' arguments."""
+    import torch
+
+    from dgcnn_tpu_torch.kernels.edgeconv_fused import fold_bn
+    from dgcnn_tpu_torch.kernels.knn_banded import knn_banded_raw
+    from dgcnn_tpu_torch.kernels.knn_capped import knn_capped
+
+    rng = np.random.default_rng(5)
+
+    def on(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(dev)
 
     def bn():
         g = rng.uniform(0.5, 1.5, 64) * rng.choice([-1.0, 1.0], 64)
-        return fold_bn(*(torch.tensor(v, dtype=torch.float32, device=dev) for v in (
-            g, rng.normal(0, 0.2, 64), rng.normal(0, 0.3, 64),
-            rng.uniform(0.5, 2.0, 64)))), torch.tensor(g, dtype=torch.float32, device=dev)
+        return fold_bn(*(on(v) for v in (g, rng.normal(0, 0.2, 64), rng.normal(0, 0.3, 64),
+                                          rng.uniform(0.5, 2.0, 64)))), on(g)
 
-    (sa, ta), _ = bn()
-    (sb, tb), _ = bn()
-    (s5, t5), gamma = bn()
-    fused = []
-    for name, fn, plain in (
-        ("edgeconv_fused_stage",
-         lambda: edgeconv_fused_stage(table, idx, bvec, w2, sa, ta, sb, tb),
-         lambda: edgeconv_fused_stage_plain(table, idx, bvec, w2, sa, ta, sb, tb)),
-        ("edgeconv_fused_extrema",
-         lambda: edgeconv_fused_extrema(table, idx, bvec, gamma, s5, t5),
-         lambda: edgeconv_fused_extrema_plain(table, idx, bvec, gamma, s5, t5)),
-    ):
-        got = fn()
-        torch.cuda.synchronize()
-        want = plain()
-        torch.cuda.synchronize()
-        err = (got - want).abs().max().item()
-        # the 64-long dot is summed in another order than cuBLAS's
-        if not err <= 1e-5:
-            raise AssertionError(f"{name}: max abs diff {err} > 1e-5")
-        ms = cuda_ms(fn, 20)
-        plain_ms = cuda_ms(plain, 5)
-        log(f"{name}: max abs diff {err:.3e}, kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
-        fused.append({"name": name, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
-    return res, fused, phase_scatter(pts), phase_gather(pts), phase_split(pts)
+    def operands(b, n):
+        table, bvec = (on(rng.standard_normal((b, n, 64))) for _ in range(2))
+        w2 = on(rng.uniform(-0.125, 0.125, (64, 64)))
+        (sa, ta), _ = bn()
+        (sb, tb), _ = bn()
+        (s5, t5), gamma = bn()
+        return dict(table=table, bvec=bvec, w2=w2, sa=sa, ta=ta, sb=sb, tb=tb, gamma=gamma,
+                    s5=s5, t5=t5)
+
+    feats = on(rng.standard_normal((B, N, 64)))
+    pts = torch.from_numpy(make_blocks(B, N, seed=0)).to(dev)
+    prod = operands(B, N)
+    cases = {
+        "capped C=64": {**prod, "idx": knn_capped(feats, K)},
+        "banded stage 1 (blocks, band 2048)": {**prod, "idx": knn_banded_raw(
+            pts, K, band=2048, query_tile=512, **BANDS)[0]},
+        "banded stage 2 (C=64, band 4096)": {**prod, "idx": knn_banded_raw(
+            feats, K, band=4096, query_tile=384, **BANDS)[0]},
+    }
+    for k in (20, 30, 40):
+        idx = rng.integers(-3, 1001 + 3, (1, 1001, k)).astype(np.int32)
+        cases[f"ragged B=1 N=1001 k={k}"] = {
+            **operands(1, 1001), "idx": torch.from_numpy(idx).to(dev)}
+    return cases
+
+
+def stage_args(case: dict) -> tuple:
+    """``edgeconv_fused_stage``'s positional arguments of a :func:`stage_cases` case."""
+    return tuple(case[key] for key in ("table", "idx", "bvec", "w2", "sa", "ta", "sb", "tb"))
+
+
+def extrema_args(case: dict) -> tuple:
+    """``edgeconv_fused_extrema``'s positional arguments of a case."""
+    return tuple(case[key] for key in ("table", "idx", "bvec", "gamma", "s5", "t5"))
+
+
+def phase_fused(dev) -> list:
+    """The fused stage and extrema kernels against their plain versions on
+    every :func:`stage_cases` case (max abs diff at most 1e-5: the 64-long
+    dot is summed in another order than cuBLAS's; the extrema kernel sums
+    nothing); each kernel timed by :func:`cuda_ms_many` on the production
+    cases, the plain versions by :func:`cuda_ms` on the first. Returns the
+    two kernels' records, the first case's times at the top level."""
+    import torch
+
+    from dgcnn_tpu_torch.kernels.edgeconv_fused import (
+        edgeconv_fused_extrema, edgeconv_fused_extrema_plain, edgeconv_fused_stage,
+        edgeconv_fused_stage_plain)
+
+    inputs = stage_cases(dev)
+    records = []
+    for name, fn, plain, args in (
+            ("edgeconv_fused_stage", edgeconv_fused_stage, edgeconv_fused_stage_plain,
+             stage_args),
+            ("edgeconv_fused_extrema", edgeconv_fused_extrema, edgeconv_fused_extrema_plain,
+             extrema_args)):
+        cases = []
+        for label, case in inputs.items():
+            a = args(case)
+            got = fn(*a)
+            torch.cuda.synchronize()
+            want = plain(*a)
+            torch.cuda.synchronize()
+            err = (got - want).abs().max().item()
+            if not err <= 1e-5:
+                raise AssertionError(f"{name} {label}: max abs diff {err} > 1e-5")
+            row = {"case": label, "max_abs_err": err}
+            if not label.startswith("ragged"):
+                row["ms"] = cuda_ms_many(lambda a=a: fn(*a))
+                if not cases:
+                    row["plain_ms"] = cuda_ms(lambda a=a: plain(*a), 5)
+            log(f"{name} {label}: max abs diff {err:.3e}" + "".join(
+                f", {key} {row[key]:.4f}" for key in ("ms", "plain_ms") if key in row))
+            cases.append(row)
+        records.append({"name": name, "max_abs_err": max(r["max_abs_err"] for r in cases),
+                        "ms": cases[0]["ms"], "plain_ms": cases[0]["plain_ms"],
+                        "cases": cases})
+    return records
 
 
 def phase_scatter(pts):
@@ -1594,7 +1669,10 @@ def main() -> int:
         "max_abs_err": max(r["max_abs_err"] for r in split),
         "ms": timed["ms"], "plain_ms": timed["plain_ms"], "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": None})
-    log(json.dumps({"knn_cases": knn_res, "scatter_cases": scatter, "gather_cases": gather,
+    for row in kernels:  # the share of its bound each kernel reaches
+        row["bound_share"] = row["bound_ms"] / row["ms"]
+    log(json.dumps({"knn_cases": knn_res, "fused_cases": fused, "scatter_cases": scatter,
+                    "gather_cases": gather,
                     "split_cases": split, "eval": evaluated,
                     "c4_bounds_ms": c4_bounds,
                     "forward_ms_per_batch": fwd_ms, "forward_prob_diff": diffs,

@@ -10,45 +10,163 @@
 //
 // with BN folded to per-channel (scale, shift) and LeakyReLU slope 0.2.
 // The (B, N, k, 64) gathered tensor never exists in device memory: that
-// is the point of both TPU kernels, and of these.
+// is the point of both TPU kernels, and of these. Neighbour indices are
+// clamped to [0, N), the semantics of the unfused chain's XLA gather.
 //
 // What bounds them on the H100. Stage: the 64x64 second conv on every
-// gathered row, B*N*k*64*64 FP32 FMAs (6.9 G at B=8, N=7000, k=30), fed
-// from shared memory; the gather reads B*N*k*64*4 bytes (430 MB) whose
+// gathered row, B*N*k*64*64 FP32 FMAs (6.9 G at B=8, N=7000, k=30: 0.205
+// ms at 67 TFLOP/s); the gather reads B*N*k*64*4 bytes (430 MB) whose
 // source table (1.8 MB per cloud) sits in L2. Extrema: only the gather,
 // so L2 bandwidth and load latency.
 //
-// Design. One warp per query row; lane l owns channels 2l and 2l+1, so
-// each gathered row is one coalesced 256-byte load. The stage kernel
-// writes the warp's activated rows to its own shared-memory tile (k rows
-// padded to a multiple of 8 by repeating the last neighbour, which leaves
-// the max unchanged), then multiplies that tile by W2, resident in shared
-// memory, in 8-row register blocks: per 4 input channels a lane reads 4
-// float2 of W2 and 8 broadcast float4 of the tile for 64 FMAs. BN_b,
-// LeakyReLU and the max over k happen in registers; only (B, N, 64) is
-// written. The extrema kernel needs no shared memory: a running max and
-// min per channel. Neighbour indices are clamped to [0, N), the
-// semantics of the unfused chain's XLA gather.
+// The stage kernel's arithmetic, which every design must keep bit for bit:
+//   e[j,d] = lrelu(affine(table[clamp(idx[q,j]), d] + bvec[q,d], sa[d], ta[d]))
+//   h[j,c] = one fmaf chain over d = 0..63 ascending, from 0.f, of e[j,d] * W2[d,c]
+//   out[c] = max_j lrelu(affine(h[j,c], sb[c], tb[c]))
+// with affine(v, s, t) = (v * s) + t rounded twice and the add rounded.
+//
+// Stage design. A warp owns one query at a time and works in units of 32
+// gathered rows (k rows padded to a multiple of 32 by repeating the last
+// neighbour, which leaves the max unchanged; k > 32 takes several units,
+// the max carried over). The grid is persistent (as many blocks as fit on
+// the SMs), and warp w of the grid walks queries w, w + G, w + 2G, ... (G
+// the grid's warps), independently of the block's other warps once W2 is
+// in shared memory. Per unit:
+//
+// * gather: the unit's 32 rows and the query's bvec arrive by cp.async
+//   (16 bytes a lane, 256 bytes a row) in a staging buffer of the warp's
+//   own; the warp has `nbuf` of them and stages unit u + nbuf - 1 while it
+//   multiplies unit u (the neighbour indices are loaded one unit earlier
+//   still, so no load waits in the loop);
+// * transform: one pass over the staged tile applies bvec, BN_a and the
+//   LeakyReLU in place, once per element;
+// * product: lane (rg, cg) = (lane / 8, lane % 8) holds an 8 x 8 register
+//   tile, rows rg + 4i and channels 4cg..4cg+3, 32+4cg..32+4cg+3: per four
+//   input channels it reads 8 float4 of the tile (the warp's four rows of a
+//   read sit in four bank groups: rows are 68 floats apart) and 8 float4 of
+//   W2 (the warp's 8 channel groups read 128 contiguous bytes) for 256
+//   FMAs, 1 byte of shared memory per FMA (8 rows x 2 channels a lane
+//   would take 2.5);
+// * epilogue: the max over the tile's rows in registers, then over the 4
+//   row groups by two shuffles; the query's 64 outputs are written once.
+//
+// The epilogue takes the max before BN_b and the LeakyReLU. For a channel
+// whose folded scale is finite and non-zero and whose shift is finite,
+// v -> lrelu(affine(v, s, t)) is monotone (rounding is), non-decreasing
+// for s > 0, so max_j f(h_j) = f(max_j h_j); NaN rows are skipped by fmaxf
+// either way, and with no row left both give -inf. For s < 0 the block
+// loads W2's column negated (exact: the fmaf chain of -W2 is -h, rounding
+// being symmetric) and uses -s. A lane with any other channel (a zero or
+// non-finite scale, a non-finite shift) applies f to every row before the
+// max, as the replaced kernel did. The outputs equal the replaced kernel's
+// as floats (torch.equal; a zero's sign may differ) on every input.
+//
+// The wrapper (kernels/edgeconv_fused.py::launch_geometry) picks the warps
+// per block and the buffers; shared memory (W2 plus warps x nbuf staging
+// tiles) does not depend on k. The launcher refuses (cudaErrorInvalidValue)
+// a geometry outside 1..12 warps and 1..2 buffers. Shipped: 12 warps (3 on
+// each of the SM's 4 schedulers) with 2 buffers, 231,808 bytes, one block
+// per SM. On the H100 (scripts/exp_edgeconv_stage_variants.py) the
+// product alone, without gather or transform, takes about 90% of the
+// kernel's time; 8 warps are 10% slower, 10 (unequal schedulers) 17%;
+// 16 warps spill at 128 registers; reading the tile one step ahead, two
+// channels a read, or unrolling the 4-channel steps 1, 4 or 16 times was
+// no faster.
+//
+// Resources (nvcc -Xptxas -v, sm_90a, CUDA 12.9; the build log beside the
+// library): 168 registers (the 384-thread bound), no spill;
+// `cuobjdump -sass`: 512 FFMA in the product loop, no HMMA or GMMA.
+//
+// The extrema kernel needs no shared memory: one warp per query row, lane
+// l owns channels 2l and 2l+1 (each gathered row is one coalesced 256-byte
+// load), a running max and min per channel.
 
 #include <cuda_runtime.h>
+#include <algorithm>
+#include <climits>
 #include <cstdint>
+
+#include "knn_common.cuh"  // cp.async helpers
 
 namespace {
 
 constexpr int kC = 64;  // table / W2 width (every DGCNN EdgeConv stage)
 constexpr int kLanes = 32;
-constexpr int kWarps = 8;
-constexpr int kRowsPerBlock = 64;  // stage: query rows per block
-constexpr int kRowBlock = 8;       // stage: gathered rows per register block
+constexpr int kWarps = 8;  // extrema kernel: warps per block
+constexpr unsigned kFull = 0xffffffffu;
+// stage kernel
+constexpr int kUnitRows = 32;        // gathered rows a warp multiplies at once
+constexpr int kRowStride = kC + 4;   // a staged row, in floats (17 float4)
+constexpr int kRowStride4 = kRowStride / 4;
+constexpr int kUnitFloats = (kUnitRows + 1) * kRowStride;  // 32 rows + bvec
+constexpr int kMaxStageWarps = 12;
+constexpr int kMaxBuffers = 2;
 
-__device__ __forceinline__ float lrelu(float v) { return v >= 0.f ? v : 0.2f * v; }
+// LeakyReLU, slope 0.2: the same bits as v >= 0 ? v : 0.2f * v (0.2f * v
+// rounds to at most v for v >= 0 and at least v below 0), in two instructions
+__device__ __forceinline__ float lrelu(float v) { return fmaxf(v, 0.2f * v); }
 
 // (v * s) + t with two roundings, as the plain version computes it
 __device__ __forceinline__ float affine(float v, float s, float t) {
   return __fadd_rn(__fmul_rn(v, s), t);
 }
 
-__global__ void __launch_bounds__(kLanes * kWarps)
+// A channel whose BN_b map v -> lrelu(affine(v, s, t)) is monotone
+// without NaN for every finite or infinite v: s finite and non-zero, t
+// finite (false for NaN).
+__device__ __forceinline__ bool regular(float s, float t) {
+  return fabsf(s) < INFINITY && s != 0.f && fabsf(t) < INFINITY;
+}
+
+// W2's column c is loaded negated where the channel is regular and its
+// scale negative; the epilogue then uses the negated scale.
+__device__ __forceinline__ bool flipped(const float* sb, const float* tb, int c) {
+  return regular(sb[c], tb[c]) && sb[c] < 0.f;
+}
+
+size_t stage_smem_bytes(int warps, int nbuf) {
+  return sizeof(float) * ((size_t)kC * kC + (size_t)warps * nbuf * kUnitFloats);
+}
+
+// A warp's unit of work: query q's rows 32c .. 32c + 31, staged in buffer
+// `buf`. A warp's units run c = 0 .. nch - 1 of each of its queries q, q + G,
+// q + 2G, ...; their buffers take turns.
+struct Unit {
+  int q, c, buf;
+  __device__ __forceinline__ void advance(int nch, int G, int nbuf) {
+    if (++c == nch) {
+      c = 0;
+      q += G;
+    }
+    if (++buf == nbuf) buf = 0;
+  }
+};
+
+// The rows of unit (q, c): lane l loads the (clamped) neighbour index of
+// row 32c + l, past k the last neighbour's.
+__device__ __forceinline__ int unit_index(const int* __restrict__ idx, int q, int c, int K,
+                                          int N, int lane) {
+  const int j = min(c * kUnitRows + lane, K - 1);
+  const int nb = __ldg(idx + (size_t)q * K + j);
+  return min(max(nb, 0), N - 1);
+}
+
+// cp.async of a unit's 32 rows (index of row r in lane r's `nb`) and the
+// query's bvec row into `buf`, committed as one group.
+__device__ __forceinline__ void stage_unit(float* buf, const float* __restrict__ tab,
+                                           const float* __restrict__ bq, int nb, int lane) {
+  const int c4 = lane & 15, half = lane >> 4;
+#pragma unroll
+  for (int i = 0; i < kUnitRows / 2; ++i) {
+    const int r = half + 2 * i;
+    const int row = __shfl_sync(kFull, nb, r);
+    cp_async16(buf + r * kRowStride + 4 * c4, tab + (size_t)row * kC + 4 * c4, true);
+  }
+  if (lane < 16) cp_async16(buf + kUnitRows * kRowStride + 4 * lane, bq + 4 * lane, true);
+  cp_async_commit();
+}
+
+__global__ void __launch_bounds__(kLanes * kMaxStageWarps, 1)
 edgeconv_stage_kernel(const float* __restrict__ table,  // (B, N, 64)
                       const int* __restrict__ idx,      // (B, N, K)
                       const float* __restrict__ bvec,   // (B, N, 64)
@@ -56,83 +174,148 @@ edgeconv_stage_kernel(const float* __restrict__ table,  // (B, N, 64)
                       const float* __restrict__ sa, const float* __restrict__ ta,
                       const float* __restrict__ sb, const float* __restrict__ tb,
                       float* __restrict__ out,          // (B, N, 64)
-                      int B, int N, int K, int k_pad) {
-  extern __shared__ float smem[];
-  const int lane = threadIdx.x % kLanes;
-  const int warp = threadIdx.x / kLanes;
-  float* w2s = smem;                                 // [64][64]
-  float* es = smem + kC * kC + warp * k_pad * kC;    // this warp's [k_pad][64]
+                      int B, int N, int K, int nbuf) {
+  extern __shared__ float4 smem4[];
+  float* w2s = reinterpret_cast<float*>(smem4);  // [64][64], some columns negated
+  const int warps = blockDim.x / kLanes;
+  const int lane = threadIdx.x % kLanes, warp = threadIdx.x / kLanes;
+  float* bufs = w2s + kC * kC + warp * nbuf * kUnitFloats;
 
-  for (int t = threadIdx.x; t < kC * kC / 4; t += blockDim.x)
-    reinterpret_cast<float4*>(w2s)[t] = reinterpret_cast<const float4*>(w2)[t];
+  for (int t = threadIdx.x; t < kC * kC / 4; t += blockDim.x) {
+    float4 w = reinterpret_cast<const float4*>(w2)[t];
+    const int c = 4 * t % kC;
+    if (flipped(sb, tb, c + 0)) w.x = -w.x;
+    if (flipped(sb, tb, c + 1)) w.y = -w.y;
+    if (flipped(sb, tb, c + 2)) w.z = -w.z;
+    if (flipped(sb, tb, c + 3)) w.w = -w.w;
+    reinterpret_cast<float4*>(w2s)[t] = w;
+  }
+
+  // transform: lane owns input channels 4 * c4 .. 4 * c4 + 3 of rows half + 2i
+  const int c4 = lane & 15, half = lane >> 4;
+  const float4 sa4 = reinterpret_cast<const float4*>(sa)[c4];
+  const float4 ta4 = reinterpret_cast<const float4*>(ta)[c4];
+  // product: rows rg + 4i, channels ch(j) = 4cg + j (j < 4), 32 + 4cg + j - 4
+  const int rg = lane >> 3, cg = lane & 7;
+  bool fast = true;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int c = (j < 4 ? 0 : 28) + 4 * cg + j;
+    fast = fast && regular(sb[c], tb[c]);
+  }
   __syncthreads();
 
-  const int c = 2 * lane;
-  const float2 sa2 = *reinterpret_cast<const float2*>(sa + c);
-  const float2 ta2 = *reinterpret_cast<const float2*>(ta + c);
-  const float2 sb2 = *reinterpret_cast<const float2*>(sb + c);
-  const float2 tb2 = *reinterpret_cast<const float2*>(tb + c);
+  const int rows = B * N;  // at most INT_MAX / 8 (the launcher): q + 3G stays an int
+  const int G = gridDim.x * warps;
+  const int nch = (K + kUnitRows - 1) / kUnitRows;
+  Unit cur{(int)blockIdx.x * warps + warp, 0, 0};  // the unit multiplied
+  Unit st = cur;                                   // the next unit staged
+  int nb = st.q < rows ? unit_index(idx, st.q, st.c, K, N, lane) : 0;  // st's rows
+  // stage unit `st` (its indices in nb), then load the next unit's indices
+  auto stage_next = [&]() {
+    if (st.q < rows) {
+      stage_unit(bufs + st.buf * kUnitFloats, table + (size_t)(st.q / N) * N * kC,
+                 bvec + (size_t)st.q * kC, nb, lane);
+    } else {
+      cp_async_commit();  // an empty group keeps the count of groups in flight
+    }
+    st.advance(nch, G, nbuf);
+    nb = st.q < rows ? unit_index(idx, st.q, st.c, K, N, lane) : 0;
+  };
+  for (int s = 0; s < nbuf - 1; ++s) stage_next();  // units 0 .. nbuf - 2 in flight
 
-  const long long total = (long long)B * N;
-  const long long row_end = min(total, (long long)(blockIdx.x + 1) * kRowsPerBlock);
-  for (long long row = (long long)blockIdx.x * kRowsPerBlock + warp; row < row_end;
-       row += kWarps) {
-    const long long b = row / N;
-    const float* tab = table + (size_t)b * N * kC;
-    const int* irow = idx + (size_t)row * K;
-    const float2 bv = *reinterpret_cast<const float2*>(bvec + (size_t)row * kC + c);
+  float m[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) m[j] = -INFINITY;
+  for (; cur.q < rows; cur.advance(nch, G, nbuf)) {
+    stage_next();  // unit cur + nbuf - 1
+    if (nbuf > 1) cp_async_wait<1>();  // unit cur + 1 may stay in flight
+    else cp_async_wait<0>();
+    __syncwarp();
 
-    // gather + bvec + BN_a + LeakyReLU -> this warp's shared tile
-    for (int j0 = 0; j0 < k_pad; j0 += kLanes) {
-      const int mine = irow[min(j0 + lane, K - 1)];
-      const int cnt = min(kLanes, k_pad - j0);
+    float* buf = bufs + cur.buf * kUnitFloats;
+    float4* buf4 = reinterpret_cast<float4*>(buf);
+    {  // bvec + BN_a + LeakyReLU, in place, once per element
+      const float4 bv = buf4[kUnitRows * kRowStride4 + c4];
 #pragma unroll 4
-      for (int jj = 0; jj < cnt; ++jj) {
-        int nb = __shfl_sync(0xffffffffu, mine, jj);
-        nb = min(max(nb, 0), N - 1);
-        const float2 g = *reinterpret_cast<const float2*>(tab + (size_t)nb * kC + c);
-        float2 e;
-        e.x = lrelu(affine(__fadd_rn(g.x, bv.x), sa2.x, ta2.x));
-        e.y = lrelu(affine(__fadd_rn(g.y, bv.y), sa2.y, ta2.y));
-        *reinterpret_cast<float2*>(es + (j0 + jj) * kC + c) = e;
+      for (int i = 0; i < kUnitRows / 2; ++i) {
+        float4 v = buf4[(half + 2 * i) * kRowStride4 + c4];
+        v.x = lrelu(affine(__fadd_rn(v.x, bv.x), sa4.x, ta4.x));
+        v.y = lrelu(affine(__fadd_rn(v.y, bv.y), sa4.y, ta4.y));
+        v.z = lrelu(affine(__fadd_rn(v.z, bv.z), sa4.z, ta4.z));
+        v.w = lrelu(affine(__fadd_rn(v.w, bv.w), sa4.w, ta4.w));
+        buf4[(half + 2 * i) * kRowStride4 + c4] = v;
       }
     }
     __syncwarp();
 
-    // W2 product in 8-row register blocks, then BN_b + LeakyReLU + max
-    float m0 = -INFINITY, m1 = -INFINITY;
-    for (int j0 = 0; j0 < k_pad; j0 += kRowBlock) {
-      float h0[kRowBlock], h1[kRowBlock];
+    float acc[8][8];
 #pragma unroll
-      for (int jj = 0; jj < kRowBlock; ++jj) h0[jj] = h1[jj] = 0.f;
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+    const float4* e4 = buf4 + rg * kRowStride4;
+    const float4* w4 = reinterpret_cast<const float4*>(w2s) + cg;
 #pragma unroll 2
-      for (int d = 0; d < kC; d += 4) {
-        const float2 wa = *reinterpret_cast<const float2*>(w2s + (d + 0) * kC + c);
-        const float2 wb = *reinterpret_cast<const float2*>(w2s + (d + 1) * kC + c);
-        const float2 wc = *reinterpret_cast<const float2*>(w2s + (d + 2) * kC + c);
-        const float2 wd = *reinterpret_cast<const float2*>(w2s + (d + 3) * kC + c);
+    for (int dk = 0; dk < kC / 4; ++dk) {
+      float4 e[8];
 #pragma unroll
-        for (int jj = 0; jj < kRowBlock; ++jj) {
-          const float4 e = *reinterpret_cast<const float4*>(es + (j0 + jj) * kC + d);
-          h0[jj] = fmaf(e.x, wa.x, h0[jj]);
-          h1[jj] = fmaf(e.x, wa.y, h1[jj]);
-          h0[jj] = fmaf(e.y, wb.x, h0[jj]);
-          h1[jj] = fmaf(e.y, wb.y, h1[jj]);
-          h0[jj] = fmaf(e.z, wc.x, h0[jj]);
-          h1[jj] = fmaf(e.z, wc.y, h1[jj]);
-          h0[jj] = fmaf(e.w, wd.x, h0[jj]);
-          h1[jj] = fmaf(e.w, wd.y, h1[jj]);
+      for (int i = 0; i < 8; ++i) e[i] = e4[4 * i * kRowStride4 + dk];
+#pragma unroll
+      for (int x = 0; x < 4; ++x) {  // input channel d = 4 dk + x, in order
+        const float4 wa = w4[(4 * dk + x) * (kC / 4)];
+        const float4 wb = w4[(4 * dk + x) * (kC / 4) + 8];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const float ev = x == 0 ? e[i].x : x == 1 ? e[i].y : x == 2 ? e[i].z : e[i].w;
+          acc[i][0] = fmaf(ev, wa.x, acc[i][0]);
+          acc[i][1] = fmaf(ev, wa.y, acc[i][1]);
+          acc[i][2] = fmaf(ev, wa.z, acc[i][2]);
+          acc[i][3] = fmaf(ev, wa.w, acc[i][3]);
+          acc[i][4] = fmaf(ev, wb.x, acc[i][4]);
+          acc[i][5] = fmaf(ev, wb.y, acc[i][5]);
+          acc[i][6] = fmaf(ev, wb.z, acc[i][6]);
+          acc[i][7] = fmaf(ev, wb.w, acc[i][7]);
         }
       }
+    }
+
+    if (fast) {
 #pragma unroll
-      for (int jj = 0; jj < kRowBlock; ++jj) {
-        m0 = fmaxf(m0, lrelu(affine(h0[jj], sb2.x, tb2.x)));
-        m1 = fmaxf(m1, lrelu(affine(h1[jj], sb2.y, tb2.y)));
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int i = 0; i < 8; ++i) m[j] = fmaxf(m[j], acc[i][j]);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int ch = (j < 4 ? 0 : 28) + 4 * cg + j;
+        const float sc = flipped(sb, tb, ch) ? -sb[ch] : sb[ch], sh = tb[ch];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) m[j] = fmaxf(m[j], lrelu(affine(acc[i][j], sc, sh)));
       }
     }
-    *reinterpret_cast<float2*>(out + (size_t)row * kC + c) = make_float2(m0, m1);
-    __syncwarp();  // the tile is rewritten by this warp's next row
+    if (cur.c == nch - 1) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        m[j] = fmaxf(m[j], __shfl_xor_sync(kFull, m[j], 8));
+        m[j] = fmaxf(m[j], __shfl_xor_sync(kFull, m[j], 16));
+        if (fast) {
+          const int ch = (j < 4 ? 0 : 28) + 4 * cg + j;
+          const float sc = flipped(sb, tb, ch) ? -sb[ch] : sb[ch];
+          m[j] = lrelu(affine(m[j], sc, tb[ch]));
+        }
+      }
+      if (rg == 0) {
+        float4* o4 = reinterpret_cast<float4*>(out + (size_t)cur.q * kC);
+        o4[cg] = make_float4(m[0], m[1], m[2], m[3]);
+        o4[8 + cg] = make_float4(m[4], m[5], m[6], m[7]);
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j) m[j] = -INFINITY;
+    }
+    __syncwarp();  // the buffer is restaged by the next iteration
   }
+  cp_async_wait<0>();  // no copy outlives the block
 }
 
 __global__ void __launch_bounds__(kLanes * kWarps)
@@ -182,22 +365,41 @@ edgeconv_extrema_kernel(const float* __restrict__ table,  // (B, N, 64)
 }  // namespace
 
 // table/bvec/out (B,N,64), idx (B,N,K) int32, w2 (64,64) row-major
-// (input channel major), sa/ta/sb/tb (64,). Returns a cudaError_t.
+// (input channel major), sa/ta/sb/tb (64,). Launch geometry: `warps` per
+// block (1..12), `nbuf` staging buffers per warp (1..2), `grid` blocks (0:
+// as many as fit on the device's SMs at once; at most one warp per query
+// either way). Returns a cudaError_t.
 extern "C" int dgcnn_edgeconv_stage(const float* table, const int* idx,
                                     const float* bvec, const float* w2,
                                     const float* sa, const float* ta,
                                     const float* sb, const float* tb,
-                                    float* out, int B, int N, int K,
-                                    void* stream) {
-  const int k_pad = (K + kRowBlock - 1) / kRowBlock * kRowBlock;
-  const size_t smem = sizeof(float) * ((size_t)kC * kC + (size_t)kWarps * k_pad * kC);
+                                    float* out, int B, int N, int K, int warps,
+                                    int nbuf, int grid, void* stream) {
+  if (K < 1 || warps < 1 || warps > kMaxStageWarps || nbuf < 1 || nbuf > kMaxBuffers ||
+      grid < 0)
+    return cudaErrorInvalidValue;
+  const long long rows = (long long)B * N;
+  if (rows == 0) return cudaSuccess;
+  if (rows > INT_MAX / 8) return cudaErrorInvalidValue;  // query numbers are ints
+  const size_t smem = stage_smem_bytes(warps, nbuf);
   cudaError_t err = cudaFuncSetAttribute(
       edgeconv_stage_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const long long rows = (long long)B * N;
-  const unsigned grid = (unsigned)((rows + kRowsPerBlock - 1) / kRowsPerBlock);
-  edgeconv_stage_kernel<<<grid, kLanes * kWarps, smem, static_cast<cudaStream_t>(stream)>>>(
-      table, idx, bvec, w2, sa, ta, sb, tb, out, B, N, K, k_pad);
+  long long blocks = grid;
+  if (blocks == 0) {
+    int dev = 0, sms = 0, per_sm = 0;
+    if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+    if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+      return err;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, edgeconv_stage_kernel,
+                                                        kLanes * warps, smem);
+    if (err != cudaSuccess) return err;
+    blocks = (long long)std::max(per_sm, 1) * sms;
+  }
+  blocks = std::min(blocks, (rows + warps - 1) / warps);
+  edgeconv_stage_kernel<<<(unsigned)blocks, kLanes * warps, smem,
+                          static_cast<cudaStream_t>(stream)>>>(
+      table, idx, bvec, w2, sa, ta, sb, tb, out, B, N, K, nbuf);
   return cudaGetLastError();
 }
 

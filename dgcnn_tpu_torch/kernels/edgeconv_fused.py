@@ -14,7 +14,8 @@ tensors, counted in ``<wrapper>.launches``, and runs its plain PyTorch
 version on CPU tensors. The plain versions build the (B, N, k, C)
 gathered tensor that the kernels never write to device memory.
 Neighbour indices are clamped to [0, N), as the unfused chain's gather
-does.
+does. :func:`launch_geometry` picks the stage kernel's warps per block and
+staging buffers; :func:`launch_stage` launches it at a given geometry.
 """
 
 from __future__ import annotations
@@ -28,6 +29,12 @@ from dgcnn_tpu_torch.kernels.gather_rows import gather_rows_plain
 from dgcnn_tpu_torch.ops.edgeconv import lrelu
 
 _WIDTH = 64  # the kernels' table and W2 width
+UNIT_ROWS = 32  # gathered rows the stage kernel's warp multiplies at once
+_UNIT_BYTES = 4 * (UNIT_ROWS + 1) * (_WIDTH + 4)  # a staging buffer: rows + bvec
+# (warps per block, staging buffers per warp) of every launch: 12 warps, 3
+# on each of the SM's 4 schedulers, the fastest on the H100
+# (scripts/exp_edgeconv_stage_variants.py)
+STAGE_GEOMETRY = (12, 2)
 
 
 def _gathered(table, idx) -> torch.Tensor:
@@ -84,6 +91,45 @@ def _stream(dev) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
 
 
+def smem_bytes(warps: int, nbuf: int) -> int:
+    """The stage kernel's shared memory, as ``csrc/edgeconv_fused.cu::
+    stage_smem_bytes`` computes it: W2 (64 x 64) and ``nbuf`` staging
+    buffers per warp, each 32 gathered rows and the query's bvec at a row
+    stride of 68 floats."""
+    return 4 * _WIDTH * _WIDTH + warps * nbuf * _UNIT_BYTES
+
+
+def launch_geometry(k: int) -> tuple[int, int]:
+    """``(warps, nbuf)`` of a stage-kernel launch for ``k`` neighbours:
+    warps per block (one query each at a time) and staging buffers per
+    warp, :data:`STAGE_GEOMETRY`. The kernel multiplies 32 gathered rows
+    at a time (``k`` rows in ``ceil(k / 32)`` units), so its shared memory
+    does not grow with ``k``: every ``k >= 1`` launches."""
+    if k < 1:
+        raise ValueError(f"the fused stage needs k >= 1 neighbours, not {k}")
+    return STAGE_GEOMETRY
+
+
+def launch_stage(table, idx, bvec, w2, vectors, geometry: tuple[int, int],
+                 grid: int = 0) -> torch.Tensor:
+    """The stage kernel on checked, contiguous CUDA tensors at ``geometry``
+    (``(warps, nbuf)``); ``grid`` blocks, 0 for as many as the SMs hold at
+    once. Not counted: :func:`edgeconv_fused_stage` counts its launches."""
+    b, n, _ = table.shape
+    warps, nbuf = geometry
+    # the kernel reads rows, W2 and BN_a's vectors 16 bytes at a time
+    table, bvec, w2, *vectors = (t if t.data_ptr() % 16 == 0 else t.clone()
+                                 for t in (table, bvec, w2, *vectors))
+    out = torch.empty((b, n, _WIDTH), dtype=torch.float32, device=table.device)
+    err = _build.lib().dgcnn_edgeconv_stage(
+        table.data_ptr(), idx.data_ptr(), bvec.data_ptr(), w2.data_ptr(),
+        *(v.data_ptr() for v in vectors), out.data_ptr(), b, n, idx.shape[-1],
+        warps, nbuf, grid, _stream(table.device),
+    )
+    _build.check(err, "edgeconv_fused_stage")
+    return out
+
+
 def edgeconv_fused_stage(table, idx, bvec, w2, scale_a, shift_a, scale_b,
                          shift_b, *, bf16_mm: bool = False) -> torch.Tensor:
     """``max_k(lrelu(BN_b(W2 @ lrelu(BN_a(table[idx] + bvec)))))`` ->
@@ -104,17 +150,9 @@ def edgeconv_fused_stage(table, idx, bvec, w2, scale_a, shift_a, scale_b,
     _check_cuda(table, idx, bvec, vectors)
     if w2.shape != (_WIDTH, _WIDTH) or w2.dtype != torch.float32 or w2.device != table.device:
         raise ValueError(f"w2 must be float32 ({_WIDTH}, {_WIDTH}) on {table.device}")
-    b, n, _ = table.shape
-    k = idx.shape[-1]
+    geometry = launch_geometry(idx.shape[-1])
     table, idx, bvec, w2 = (t.contiguous() for t in (table, idx, bvec, w2))
-    vectors = [v.contiguous() for v in vectors]
-    out = torch.empty((b, n, _WIDTH), dtype=torch.float32, device=table.device)
-    err = _build.lib().dgcnn_edgeconv_stage(
-        table.data_ptr(), idx.data_ptr(), bvec.data_ptr(), w2.data_ptr(),
-        *(v.data_ptr() for v in vectors), out.data_ptr(), b, n, k,
-        _stream(table.device),
-    )
-    _build.check(err, "edgeconv_fused_stage")
+    out = launch_stage(table, idx, bvec, w2, [v.contiguous() for v in vectors], geometry)
     edgeconv_fused_stage.launches += 1
     return out
 

@@ -16,6 +16,7 @@ from dgcnn_tpu_torch.kernels.edgeconv_fused import (
     edgeconv_fused_stage,
     edgeconv_fused_stage_plain,
     fold_bn,
+    launch_stage,
 )
 from dgcnn_tpu_torch.kernels.knn_banded import (
     knn_banded,
@@ -277,6 +278,38 @@ def test_fused_stage_kernel_equals_plain(dev):
     want = edgeconv_fused_stage_plain(table, idx, bvec, w2, sa, ta, sb, tb)
     # the 64-long dot: sequential FMA in the kernel, cuBLAS's order in plain
     torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+
+
+# (b, n, k): k padded within one unit of 32 rows, exactly one unit, two
+# units, k = 1; ragged n
+STAGE_SHAPES = [(2, 1200, 30), (1, 1001, 20), (1, 1001, 32), (1, 1001, 40), (3, 77, 1)]
+# (warps, nbuf, grid): the shipped geometry first; grid 0 is the persistent
+# grid, 3 blocks walk many queries per warp
+STAGE_GEOMETRIES = [(12, 2, 0), (12, 1, 0), (8, 2, 0), (10, 2, 0), (4, 1, 0), (1, 1, 0),
+                    (12, 2, 3)]
+
+
+@pytest.mark.parametrize("b, n, k", STAGE_SHAPES)
+def test_fused_stage_kernel_geometries(dev, b, n, k):
+    """Every launch geometry gives the same outputs, bit for bit, within
+    1e-5 of the plain version, with indices outside [0, n) clamped and a
+    zero BN_b scale (its lane takes the per-row epilogue)."""
+    rng = np.random.default_rng(k)
+    table, bvec = _on(dev, *rng.standard_normal((2, b, n, 64)).astype(np.float32))
+    idx, = _on(dev, rng.integers(-2, n + 2, (b, n, k)).astype(np.int32))
+    w2, = _on(dev, rng.uniform(-0.125, 0.125, (64, 64)).astype(np.float32))
+    (sa, ta), (sb, tb) = [fold_bn(*_on(dev, v["gamma"], v["beta"], v["mean"], v["var"]))
+                          for v in (random_bn(rng, 64), random_bn(rng, 64))]
+    sb[1] = 0.0
+    vectors = [sa, ta, sb, tb]
+    want = edgeconv_fused_stage_plain(table, idx, bvec, w2, *vectors)
+    got = [launch_stage(table, idx, bvec, w2, vectors, g[:2], g[2]) for g in STAGE_GEOMETRIES]
+    torch.testing.assert_close(got[0], want, atol=1e-5, rtol=1e-5)
+    for g, out in zip(STAGE_GEOMETRIES, got):
+        assert torch.equal(out, got[0]), g
+    before = edgeconv_fused_stage.launches
+    assert torch.equal(edgeconv_fused_stage(table, idx, bvec, w2, *vectors), got[0])
+    assert edgeconv_fused_stage.launches == before + 1
 
 
 def test_fused_extrema_kernel_equals_plain(dev):

@@ -68,14 +68,27 @@ def test_fold_bn_matches_jax(inputs):
         np.testing.assert_allclose(g.numpy(), w, atol=1e-6, rtol=1e-6)
 
 
-def test_fused_stage_plain_matches_jax_kernel(inputs):
+# (n, k): the fixture's shape, the k the CUDA kernel pads to one (k <= 32)
+# or two (k = 40) units of 32 rows, and a ragged N (the JAX kernel pads the
+# rows to its 64-query tile)
+STAGE_SHAPES = [(N, K), (N, 20), (N, 30), (N, 40), (301, 30)]
+
+
+@pytest.mark.parametrize("n, k", STAGE_SHAPES)
+def test_fused_stage_plain_matches_jax_kernel(inputs, n, k):
     a, b = inputs["bn"]["a"], inputs["bn"]["b"]
     sa, ta = _fold_jax(a)
     sb, tb = _fold_jax(b)
-    args = (inputs["table"], inputs["idx"], inputs["bvec"], inputs["w2"], sa, ta, sb, tb)
+    if (n, k) == (N, K):
+        table, idx, bvec = inputs["table"], inputs["idx"], inputs["bvec"]
+    else:
+        rng = np.random.default_rng(n * 100 + k)
+        table, bvec = rng.standard_normal((2, B, n, C)).astype(np.float32)
+        idx = knn(torch.from_numpy(sorted_blocks(B, n, seed=k)), k).numpy()
+    args = (table, idx, bvec, inputs["w2"], sa, ta, sb, tb)
     got = edgeconv_fused_stage(*_t(*args)).numpy()
     want = np.asarray(jax_stage(*map(jnp.asarray, args), interpret=True))
-    assert got.shape == (B, N, C)
+    assert got.shape == (B, n, C)
     np.testing.assert_allclose(got, want, **TOL)
 
 
