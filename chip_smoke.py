@@ -65,6 +65,12 @@ feature tables, and through a forced repair, a window overflow, a budget
 overflow and an unsorted batch), in phases 3 (one tile served in each
 mode, launch counts asserted), 5, 6 and 7.
 
+Phase 2 holds the capped kNN kernel against its plain version at the
+self-kNN (C=4 and C=64) and at the recall guard's probes (64 and 256 rows
+of ``probe_rows`` against the C=64 table), bit for bit on integer inputs,
+and times it by ``cuda_ms_many``; its row carries the C=4 self-kNN as
+``"c4"`` and the probes as ``"probes_m64"`` / ``"probes_m256"``, each with
+its bound (``capped_bound``).
 Phase 2 holds the banded kNN kernel bit for bit against its plain version
 (indices and k-th keys) on integer inputs at more geometries
 (``BANDED_GEOMETRIES``: ragged N, B=1 and 8, query tiles 32-512, 16-192
@@ -115,6 +121,7 @@ import numpy as np
 
 B, N, K = 8, 7000, 30
 BANDS = dict(n_win=64, cap=6)  # the default configuration's band windows
+PROBES = (64, 256)  # the recall guard's probe rows: stage A, stage B
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM published peaks (700 W)
 FP32_FLOP_PER_S = 67e12
 
@@ -144,6 +151,16 @@ def banded_bound(c: int, band: int, qt: int) -> tuple[float, str]:
     read, the indices and k-th keys written, once each; one FMA (2
     operations) per channel of each pair :func:`band_pairs` counts."""
     return bound(4.0 * B * N * (c + 1 + K + 1), 2.0 * B * band_pairs(band, qt) * c)
+
+
+def capped_bound(c: int, m: int | None = None) -> tuple[float, str]:
+    """Bound of the capped kNN of ``m`` queries (None: the self-kNN) over a
+    (B, N, c) batch: the rows, their norms and the queries read once, the
+    indices written once; one FMA (2 operations) per channel of each
+    (query, row below N) pair."""
+    q_read = 0 if m is None else m * (c + 1)
+    m = N if m is None else m
+    return bound(4.0 * B * (N * (c + 1) + q_read + m * K), 2.0 * B * m * N * c)
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -415,7 +432,8 @@ def banded_geometries(rng) -> None:
 def phase_kernels():
     import torch
 
-    from dgcnn_tpu_torch.kernels.knn_banded import knn_banded_raw, knn_banded_raw_plain
+    from dgcnn_tpu_torch.kernels.knn_banded import (
+        knn_banded_raw, knn_banded_raw_plain, probe_rows)
     from dgcnn_tpu_torch.kernels.knn_capped import knn_capped, knn_capped_plain
     from dgcnn_tpu_torch.kernels.knn_exact import knn_exact, knn_exact_plain
     from dgcnn_tpu_torch.kernels.knn_exact_banded import (
@@ -435,7 +453,17 @@ def phase_kernels():
                                 ("float C=4 (blocks)", pts, False),
                                 ("float C=64", feats, False)):
         _case(f"knn_capped {name}", x, x, int_valued, lambda x=x: knn_capped(x, K),
-              lambda x=x: knn_capped_plain(x, K), res["knn_capped"])
+              lambda x=x: knn_capped_plain(x, K), res["knn_capped"], queued=True)
+    # the recall guard's probes: 64 (stage A) and 256 (stage B) rows of
+    # probe_rows against the whole C=64 table, on integers and on floats
+    for m in PROBES:
+        rows = probe_rows(N, m, dev)
+        for name, x, int_valued in (("int", ints[64], True), ("float", feats, False)):
+            q = x[:, rows].contiguous()
+            _case(f"knn_capped {name} C=64 probes M={m}", x, q, int_valued,
+                  lambda x=x, q=q: knn_capped(x, K, queries=q),
+                  lambda x=x, q=q: knn_capped_plain(x, K, queries=q), res["knn_capped"],
+                  queued=True)
 
     def equal_keys(got, want):
         if not torch.equal(got[1], want[1]):
@@ -1573,8 +1601,7 @@ def main() -> int:
     bnc4 = 4.0 * B * N
     rows = [
         ("knn_capped", "knn_capped.cu", "knn_pallas.py:259", knn_res["knn_capped"],
-         pick(knn_res["knn_capped"], "knn_capped float C=64"),
-         bound(bnc4 * (64 + K), 2.0 * B * N * N * 64)),
+         pick(knn_res["knn_capped"], "knn_capped float C=64"), capped_bound(64)),
         ("edgeconv_fused_stage", "edgeconv_fused.cu", "edgeconv_pallas.py:67", [fused[0]],
          fused[0], bound(bnc4 * (3 * 64 + K) + 4.0 * (64 * 64 + 4 * 64),
                          2.0 * B * N * K * 64 * 64)),
@@ -1606,7 +1633,7 @@ def main() -> int:
     # at N=40 000, B=1
     n_big = 40000
     c4_bounds = {
-        "knn_capped C=4": bound(bnc4 * (4 + K), 2.0 * B * N * N * 4),
+        "knn_capped C=4": capped_bound(4),
         "knn_banded C=4 band 2048": banded_bound(4, 2048, 512),
         "knn_exact C=4 self N=40000": bound(4.0 * n_big * (4 + K), 2.0 * n_big * n_big * 4),
         "knn_exact_banded C=4 band 2048": bound(bnc4 * (4 + 1 + K + 2),
@@ -1633,6 +1660,19 @@ def main() -> int:
         "ms": c4["ms"], "plain_ms": c4["plain_ms"],
         "bound_ms": c4_bounds["knn_banded C=4 band 2048"][0],
         "bound_by": c4_bounds["knn_banded C=4 band 2048"][1], "library_ms": None}
+
+    # the capped kNN's C=4 self-kNN (the capped-only path's stage 1) and the
+    # recall guard's probes, beside its C=64 self-kNN
+    capped_row = next(r for r in kernels if r["name"] == "knn_capped")
+    c4 = pick(knn_res["knn_capped"], "knn_capped float C=4 (blocks)")
+    capped_row["c4"] = {"ms": c4["ms"], "plain_ms": c4["plain_ms"],
+                        "bound_ms": c4_bounds["knn_capped C=4"][0],
+                        "bound_by": c4_bounds["knn_capped C=4"][1], "library_ms": None}
+    for m in PROBES:
+        timed = pick(knn_res["knn_capped"], f"knn_capped float C=64 probes M={m}")
+        b_ms, b_by = capped_bound(64, m)
+        capped_row[f"probes_m{m}"] = {"ms": timed["ms"], "plain_ms": timed["plain_ms"],
+                                      "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
 
     def c4_case(cases):  # the row kernels' C=4 width beside the C=64 one
         return {"c4": {k_: pick(cases, "C=4 kNN of blocks")[k_] for k_ in timing}}

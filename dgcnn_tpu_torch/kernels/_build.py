@@ -34,8 +34,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # C entry points (see csrc/*.cu): argument types, all returning cudaError_t
 SIGNATURES = {
-    "dgcnn_knn_capped": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                         _I, _I, _P),
+    "dgcnn_knn_capped": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                         _I, _I, _I, _I, _I, _I, _I, _P),
     "dgcnn_knn_banded": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                          _I, _I, _I, _I, _I, _I, _P),
     "dgcnn_knn_exact": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),

@@ -88,7 +88,8 @@
 #include <climits>
 #include <cstdint>
 
-#include "knn_common.cuh"  // band_start, score_key, load_query, cp.async helpers
+#include "knn_common.cuh"  // band_start, load_query, cp.async helpers
+#include "knn_select.cuh"  // keys, lists, the dot tile, the merge
 
 namespace {
 
@@ -99,7 +100,6 @@ constexpr int kQM = 4;      // fused kernel: queries per thread
 constexpr int kC4Unroll = 4;
 constexpr int kTileRows = 4 * kSlots;  // two-phase kernel: 4 j-steps a tile
 constexpr int kKeyStride = kTileRows + 8;  // its key tile's row, in ints
-constexpr int kC2Unroll = 4;  // its 2-channel steps of the dot loop unrolled
 
 // Fused kernel: slots (windows) per thread. RM lists of CAP keys per query
 // live in registers, so RM sets the registers and with them the warps an
@@ -121,34 +121,6 @@ __host__ __device__ constexpr int max_threads() {
 template <int CAP, int CV>
 __host__ __device__ constexpr int min_blocks() {
   return CV <= 8 && CAP <= 6 ? 2 : 1;
-}
-
-// A staged row's stride in float4: odd, so that 8 consecutive rows fall in
-// 8 different 16-byte bank groups.
-template <int CV>
-__host__ __device__ constexpr int row_stride4() {
-  return (CV / 4) % 2 ? CV / 4 : CV / 4 + 1;
-}
-
-__device__ __forceinline__ int pack_key(float s, int low, int keep_mask) {
-  return ((score_key(s) >> 1) & keep_mask) | low;
-}
-
-// explicit roundings: (2*dot - |x|^2) - |q|^2, as the TPU kernel
-__device__ __forceinline__ float score(float dot, float xn, float qn) {
-  return __fsub_rn(__fsub_rn(__fmul_rn(2.f, dot), xn), qn);
-}
-
-// v into a list sorted largest first (CAP keys); keys are unique, and
-// INT_MIN (an empty slot, or a slot past n_win) changes nothing
-template <int CAP>
-__device__ __forceinline__ void insert(int (&top)[CAP], int v) {
-#pragma unroll
-  for (int i = 0; i < CAP; ++i) {
-    const int hi = max(top[i], v);
-    v = min(top[i], v);
-    top[i] = hi;
-  }
 }
 
 // The band rows of j-steps [t * jt, t * jt + jt) of the round at w0 (row
@@ -175,99 +147,6 @@ __device__ __forceinline__ void stage_rows(float4* dst, float* dn, const float* 
     cp_async4(dn + row, ok ? cb + o : cb, ok);
   }
   cp_async_commit();
-}
-
-// The queries q0 .. q0 + qb - 1 (clamped to N - 1), by cp.async, uncommitted.
-template <int CV>
-__device__ __forceinline__ void stage_queries(float4* qs4, const float* xb, int q0,
-                                              int qb, int N) {
-  constexpr int V = CV / 4, XS4 = row_stride4<CV>();
-  for (int t = threadIdx.x; t < qb * V; t += blockDim.x) {
-    const int ql = t / V, c4 = t % V;
-    const int qi = min(q0 + ql, N - 1);
-    cp_async16(qs4 + ql * XS4 + c4, xb + (size_t)qi * CV + 4 * c4, true);
-  }
-}
-
-// The merge of the per-window lists ([qb][n_win][LS], sorted largest
-// first) into each query's top-k, largest key first, and its k-th key.
-// One round of windows (LS = CAP + 1, a sentinel INT_MIN closing each
-// list): each lane holds the heads of windows lane and lane + 32; k rounds
-// of a warp max pop the winners in order (keys are unique; INT_MIN is an
-// exhausted list, a window shorter than CAP, or no window). Branch-free,
-// so that the G queries a warp merges at once overlap their rounds: a
-// lane without a window points at a sentinel, and a pop moves a pointer
-// that stays in its list. Several rounds (n_win > 64, LS = CAP): k rounds
-// of "largest key below the last winner" over every slot.
-template <int CAP, int G>
-__device__ __forceinline__ void merge_lists(const int* lists, bool one_round, int qb,
-                                            int q0, int b, int N, int K, int n_win,
-                                            int start, int band, int imask,
-                                            int* __restrict__ out,
-                                            int* __restrict__ kth) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;  // qb == G * nwarps
-  const int LS = one_round ? CAP + 1 : CAP;
-  if (one_round) {
-    int h0[G], h1[G], p0[G], p1[G], res[G], last[G];
-#pragma unroll
-    for (int m = 0; m < G; ++m) {
-      const int base = (warp + nwarps * m) * n_win * LS;
-      p0[m] = base + (lane < n_win ? lane * LS : CAP);
-      p1[m] = base + (lane + 32 < n_win ? (lane + 32) * LS : CAP);
-      h0[m] = lists[p0[m]];
-      h1[m] = lists[p1[m]];
-      res[m] = last[m] = INT_MIN;
-    }
-    for (int t = 0; t < K; ++t) {
-#pragma unroll
-      for (int m = 0; m < G; ++m) {
-        const int best = __reduce_max_sync(0xffffffffu, max(h0[m], h1[m]));
-        res[m] = lane == (t & 31) ? best : res[m];
-        last[m] = best;
-        const bool real = best != INT_MIN;
-        p0[m] += real && h0[m] == best;
-        p1[m] += real && h1[m] == best;
-        h0[m] = lists[p0[m]];
-        h1[m] = lists[p1[m]];
-      }
-      if ((t & 31) == 31 || t == K - 1) {  // warp-uniform
-#pragma unroll
-        for (int m = 0; m < G; ++m) {
-          const int qq = q0 + warp + nwarps * m;
-          if (qq < N && lane <= (t & 31))
-            out[((size_t)b * N + qq) * K + (t & ~31) + lane] =
-                start + band - 1 - (res[m] & imask);
-        }
-      }
-    }
-#pragma unroll
-    for (int m = 0; m < G; ++m) {
-      const int qq = q0 + warp + nwarps * m;
-      if (K > 0 && qq < N && lane == 0) kth[(size_t)b * N + qq] = last[m];
-    }
-    return;
-  }
-  for (int ql = warp; ql < qb; ql += nwarps) {
-    const int qq = q0 + ql;
-    if (qq >= N) break;  // warp-uniform
-    const int* keys = lists + ql * n_win * LS;
-    int* orow = out + ((size_t)b * N + qq) * K;
-    int prev = INT_MAX;
-    for (int t = 0; t < K; ++t) {
-      int best = INT_MIN;
-      for (int w = lane; w < n_win; w += 32)
-#pragma unroll
-        for (int i = 0; i < CAP; ++i) {
-          const int v = keys[w * LS + i];
-          if (v < prev && v > best) best = v;
-        }
-      best = __reduce_max_sync(0xffffffffu, best);
-      if (lane == 0) orow[t] = start + band - 1 - (best & imask);
-      prev = best;
-    }
-    if (lane == 0) kth[(size_t)b * N + qq] = prev;
-  }
 }
 
 // A launch's shared memory (bytes): the staging and the per-window lists,
@@ -475,8 +354,8 @@ knn_banded_kernel(const float* __restrict__ x,      // (B, N, CV)
 }
 
 // Two-phase kernel, phase A of one tile (256 rows = 4 j-steps): the 8 x 8
-// dots of queries ty + TY * i and tile rows tx + 32 * i, two channels at a
-// time, then their keys into the key tile [qb][kKeyStride].
+// dots of queries ty + TY * i and tile rows tx + 32 * i (tile_dots), then
+// their keys into the key tile [qb][kKeyStride].
 template <int CV, bool CHECK>
 __device__ __forceinline__ void tile_keys(const float4* __restrict__ qs4,
                                           const float4* __restrict__ xs4,
@@ -485,31 +364,8 @@ __device__ __forceinline__ void tile_keys(const float4* __restrict__ qs4,
                                           int ty, int TY, int tx, int j0, int w_sz,
                                           int w0, int start, int N, int band, int n_win,
                                           int keep_mask) {
-  constexpr int XS2 = 2 * row_stride4<CV>();
-  const float2* q2 = reinterpret_cast<const float2*>(qs4) + ty * XS2;
-  const float2* x2 = reinterpret_cast<const float2*>(xs4) + tx * XS2;
   float acc[8][8];
-#pragma unroll
-  for (int a = 0; a < 8; ++a)
-#pragma unroll
-    for (int c = 0; c < 8; ++c) acc[a][c] = 0.f;
-#pragma unroll (kC2Unroll)
-  for (int c2 = 0; c2 < CV / 2; ++c2) {
-    float2 qf[8], xf[8];
-#pragma unroll
-    for (int a = 0; a < 8; ++a) qf[a] = q2[a * TY * XS2 + c2];
-#pragma unroll
-    for (int c = 0; c < 8; ++c) xf[c] = x2[c * 32 * XS2 + c2];
-    // each accumulator's chain runs channel after channel
-#pragma unroll
-    for (int a = 0; a < 8; ++a)
-#pragma unroll
-      for (int c = 0; c < 8; ++c) acc[a][c] = fmaf(qf[a].x, xf[c].x, acc[a][c]);
-#pragma unroll
-    for (int a = 0; a < 8; ++a)
-#pragma unroll
-      for (int c = 0; c < 8; ++c) acc[a][c] = fmaf(qf[a].y, xf[c].y, acc[a][c]);
-  }
+  tile_dots<CV>(acc, qs4, xs4, ty, TY, tx);
 #pragma unroll
   for (int c = 0; c < 8; ++c) {
     const int row = tx + 32 * c;  // tile row: j-step row / 64, slot row % 64

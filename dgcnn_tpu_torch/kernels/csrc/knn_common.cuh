@@ -2,7 +2,8 @@
 // (knn_exact.cu, knn_exact_banded.cu) and the packed one (knn_packed.cu),
 // its order-exact int32 key, the band start of a query tile (the banded
 // kernels, knn_banded.cu and knn_exact_banded.cu), and the asynchronous
-// copies into shared memory that knn_banded.cu stages its tiles with.
+// copies into shared memory that knn_banded.cu and knn_capped.cu stage
+// their tiles with.
 //
 //   score(q, o) = 2 * <q, x_o> - |x_o|^2
 //

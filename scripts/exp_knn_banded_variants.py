@@ -5,7 +5,8 @@ GPU, at the default path's two shapes.
     python scripts/exp_knn_banded_variants.py [NAME ...]
 
 Each variant is a list of text replacements (``VARIANTS``) applied to a
-copy of ``csrc/`` under ``build/knn_banded_variants/NAME/``; the copy's
+copy of ``csrc/`` under ``build/knn_banded_variants/NAME/`` (in
+``knn_banded.cu`` or in the header it shares, ``knn_select.cuh``); the copy's
 ``knn_banded.cu`` and ``knn_capped.cu`` (which holds the error-string
 entry point) are compiled with the port's flags into one library. The
 script prints the compiler's register, stack and spill lines of the C=4
@@ -40,6 +41,32 @@ VARIANTS = {
     # the two-phase kernel's 2-channel steps of the dot loop unrolled
     "tile_unroll1": [("constexpr int kC2Unroll = 4;", "constexpr int kC2Unroll = 1;")],
     "tile_unroll2": [("constexpr int kC2Unroll = 4;", "constexpr int kC2Unroll = 2;")],
+    # the two-phase kernel's dot tile written out in its phase A, as before
+    # the capped kernel shared it (knn_select.cuh::tile_dots)
+    "own_dots": [(
+        "  float acc[8][8];\n  tile_dots<CV>(acc, qs4, xs4, ty, TY, tx);\n",
+        "  constexpr int XS2 = 2 * row_stride4<CV>();\n"
+        "  const float2* q2 = reinterpret_cast<const float2*>(qs4) + ty * XS2;\n"
+        "  const float2* x2 = reinterpret_cast<const float2*>(xs4) + tx * XS2;\n"
+        "  float acc[8][8];\n"
+        "#pragma unroll\n  for (int a = 0; a < 8; ++a)\n#pragma unroll\n"
+        "    for (int c = 0; c < 8; ++c) acc[a][c] = 0.f;\n"
+        "#pragma unroll (kC2Unroll)\n  for (int c2 = 0; c2 < CV / 2; ++c2) {\n"
+        "    float2 qf[8], xf[8];\n"
+        "#pragma unroll\n    for (int a = 0; a < 8; ++a) qf[a] = q2[a * TY * XS2 + c2];\n"
+        "#pragma unroll\n    for (int c = 0; c < 8; ++c) xf[c] = x2[c * 32 * XS2 + c2];\n"
+        "#pragma unroll\n    for (int a = 0; a < 8; ++a)\n#pragma unroll\n"
+        "      for (int c = 0; c < 8; ++c) acc[a][c] = fmaf(qf[a].x, xf[c].x, acc[a][c]);\n"
+        "#pragma unroll\n    for (int a = 0; a < 8; ++a)\n#pragma unroll\n"
+        "      for (int c = 0; c < 8; ++c) acc[a][c] = fmaf(qf[a].y, xf[c].y, acc[a][c]);\n"
+        "  }\n")],
+    # the shared header's functions with internal linkage, as they had in
+    # the banded kernel's source
+    "select_internal": [
+        ('#include "knn_common.cuh"  // score_key, cp.async helpers\n',
+         '#include "knn_common.cuh"  // score_key, cp.async helpers\nnamespace {\n'),
+        ("kth[(size_t)b * M + qq] = prev;\n  }\n}\n",
+         "kth[(size_t)b * M + qq] = prev;\n  }\n}\n}  // namespace\n")],
     # what the insertions cost: each key is folded into the list's head instead
     "diag_no_insert": [
         ("insert<CAP>(top[a][c], v);", "top[a][c][0] ^= v;"),
@@ -48,18 +75,19 @@ VARIANTS = {
 }
 
 
+
 def _build_variant(name: str, patches: list[tuple[str, str]], out_dir: Path):
     from dgcnn_tpu_torch.kernels import _build
 
     src_dir = out_dir / name
     shutil.rmtree(src_dir, ignore_errors=True)
     shutil.copytree(_build.CSRC, src_dir)
-    text = (src_dir / "knn_banded.cu").read_text()
-    for old, new in patches:
-        if old not in text:
-            raise ValueError(f"{name}: {old!r} is not in knn_banded.cu")
-        text = text.replace(old, new)
-    (src_dir / "knn_banded.cu").write_text(text)
+    for old, new in patches:  # in the kernel's source or the header it shares
+        src = next((src_dir / f for f in ("knn_banded.cu", "knn_select.cuh")
+                    if old in (src_dir / f).read_text()), None)
+        if src is None:
+            raise ValueError(f"{name}: {old!r} is not in knn_banded.cu or knn_select.cuh")
+        src.write_text(src.read_text().replace(old, new))
     nvcc = _build.nvcc_path()
     objs, procs = [], []
     for src in ("knn_banded.cu", "knn_capped.cu"):

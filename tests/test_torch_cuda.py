@@ -20,11 +20,18 @@ from dgcnn_tpu_torch.kernels.edgeconv_fused import (
 )
 from dgcnn_tpu_torch.kernels.knn_banded import (
     knn_banded,
+    probe_rows,
     knn_banded_raw,
     knn_banded_raw_plain,
     knn_feature_banded,
 )
-from dgcnn_tpu_torch.kernels.knn_capped import knn_capped, knn_capped_plain
+from dgcnn_tpu_torch.kernels.knn_capped import (
+    capped_geometry,
+    knn_capped,
+    knn_capped_plain,
+    launch_geometry,
+)
+from dgcnn_tpu_torch.kernels.knn_capped import launch_kernel as knn_capped_launch
 from dgcnn_tpu_torch.kernels.knn_exact import knn_exact, knn_exact_plain
 from dgcnn_tpu_torch.kernels.knn_exact_banded import (
     knn_exact_banded,
@@ -86,6 +93,61 @@ def test_knn_kernel_refuses_unported_cases(dev):
     got = knn_capped(x, 20)
     assert knn_exact.launches == before + 1
     assert torch.equal(got, knn_exact_plain(x, 20))
+
+
+# the capped kernel's shapes: (c, b, n, m, window, cap) — m None: self-kNN.
+# The default path's self-kNN (C=4 stage 1, C=64 stages 2-3) and its
+# recall-guard probes (64 and 256 rows of probe_rows), ragged probes, the
+# JAX tests' window 128 with cap 4, one small cloud, and the widest index
+# field (15 bits, 118 windows: four groups of windows even for a self-kNN)
+CAPPED_CASES = [
+    (4, 8, 7000, None, 256, 8), (64, 8, 7000, None, 256, 8),
+    (64, 8, 7000, 64, 256, 8), (64, 8, 7000, 256, 256, 8), (64, 8, 7000, 200, 256, 8),
+    (4, 8, 7000, 64, 256, 8), (3, 2, 4500, None, 128, 4), (64, 2, 4500, 100, 128, 4),
+    (4, 1, 1001, None, 256, 8), (64, 1, 1001, None, 256, 8),
+    (4, 1, 30000, None, 256, 8), (64, 1, 30000, 256, 256, 8),
+]
+
+
+def _capped_queries(x, m):
+    if m is None:
+        return None
+    n = x.shape[1]
+    rows = probe_rows(n, m, x.device) if m in (64, 256) else torch.arange(m, device=x.device) * (n // m)
+    return x[:, rows].contiguous()
+
+
+@pytest.mark.parametrize("c, b, n, m, window, cap", CAPPED_CASES)
+def test_capped_kernel_shapes_equal_plain_on_integer_inputs(dev, c, b, n, m, window, cap):
+    x, = _on(dev, np.random.default_rng(c + n).integers(0, 16, (b, n, c)).astype(np.float32))
+    q = _capped_queries(x, m)
+    before = knn_capped.launches
+    got = knn_capped(x, 30, window=window, cap=cap, queries=q)
+    torch.cuda.synchronize()
+    assert knn_capped.launches == before + 1
+    assert torch.equal(got, knn_capped_plain(x, 30, window=window, cap=cap, queries=q))
+
+
+@pytest.mark.parametrize("c, m", [(64, None), (64, 64), (64, 256), (4, None), (4, 200)])
+def test_capped_kernel_geometries_agree_bit_for_bit_on_floats(dev, c, m):
+    """Every launch geometry returns the same indices, bit for bit, on
+    floats too: the keys are unique and each dot is one fmaf chain."""
+    rng = np.random.default_rng(c)
+    x, = _on(dev, sorted_blocks(8, 7000, seed=4) if c == 4
+             else rng.standard_normal((8, 7000, 64)).astype(np.float32))
+    q = x if m is None else _capped_queries(x, m)
+    cn, qn = (x * x).sum(-1), (q * q).sum(-1)
+    n_pad, n_win, _ = capped_geometry(7000, 256)
+    shipped = launch_geometry(c, 8, q.shape[1], n_pad, n_win, 8)
+    want = knn_capped_launch(x, q, cn, qn, 30, window=256, cap=8, geometry=shipped)
+    if c > 8:
+        others = [(qb, g, 256 // g, 1) for qb in (64, 32) for g in (1, 4, 7, 28)]
+    else:
+        others = [(4 * min(256 // g, 16), g, jt, nbuf) for g in (1, 4, 14, 28)
+                  for jt, nbuf in ((16, 2), (3, 1))]
+    for geometry in others:
+        got = knn_capped_launch(x, q, cn, qn, 30, window=256, cap=8, geometry=geometry)
+        assert torch.equal(got, want), geometry
 
 
 BANDED_CASES = [  # (c, b, n, band, n_win, cap, qt)

@@ -9,6 +9,7 @@ import torch
 
 from dgcnn_tpu.kernels.knn_pallas import knn_pallas
 from dgcnn_tpu.ops.knn import knn as jax_knn
+from dgcnn_tpu_torch.kernels.knn_banded import probe_rows
 from dgcnn_tpu_torch.kernels.knn_capped import knn_capped, knn_capped_plain
 from dgcnn_tpu_torch.ops.knn import knn
 
@@ -59,14 +60,22 @@ def test_capped_modular_cluster_overflow_matches_jax():
     assert not set(got[0, q].tolist()) <= set(cluster.tolist())
 
 
-def test_capped_queries_variant_matches_jax_kernel():
+@pytest.mark.parametrize("n, c, m, k", [
+    (1024, 4, 200, 20),  # free queries
+    (2048, 64, 64, 30),  # the recall guard's probes: stage A ...
+    (2048, 64, 256, 30),  # ... and stage B, rows of probe_rows, window 256
+])
+def test_capped_queries_variant_matches_jax_kernel(n, c, m, k):
     rng = np.random.default_rng(11)
-    x = _ints(rng, (2, 1024, 4))
-    q = _ints(rng, (2, 200, 4))
-    got = knn_capped(torch.from_numpy(x), 20, cap=8,
+    x = _ints(rng, (2, n, c))
+    if m in (64, 256):  # the probes are rows of the table itself
+        q = x[:, probe_rows(n, m, torch.device("cpu")).numpy()]
+    else:
+        q = _ints(rng, (2, m, c))
+    got = knn_capped(torch.from_numpy(x), k, cap=8,
                      queries=torch.from_numpy(q)).numpy()
-    want = _jax_capped(x, 20, cap=8, queries=jnp.asarray(q))
-    assert got.shape == (2, 200, 20)
+    want = _jax_capped(x, k, cap=8, queries=jnp.asarray(q))
+    assert got.shape == (2, m, k)
     np.testing.assert_array_equal(got, want)
 
 
