@@ -56,10 +56,12 @@ Phases, each of which raises on failure (exit code 1, no result line):
 The parity mode (``knn_impl="pallas"``: the exact banded kNN, stage 1 at
 band 2048, stages 2-3 at full width, 64 windows, cap 8) and the packed
 mode (``knn_impl="pallas_packed"``: the flat packed kNN) run in phase 2
-(each kernel against its plain version: the exact banded kernel at C=4
-band 2048 and C=64 full width, bit for bit in its three outputs on a 1/64
-grid; the packed kernel at C=4 and C=64 and as the capped kNN's small-input
-fallback), in phase 2b (the parity wrapper on the card bit for bit equal
+(each kernel against its plain version, timed by ``cuda_ms_many``: the
+exact banded kernel at C=4 band 2048 and C=64 full width, bit for bit in
+its three outputs on a 1/64 grid; the packed kernel at C=4 and C=64, with
+1000 ``queries=`` rows at C=64, and as the capped kNN's small-input
+fallback; the two kernels' rows carry their C=4 case as ``"c4"``), in
+phase 2b (the parity wrapper on the card bit for bit equal
 to the flat exact kernel on the card, on ``make_blocks`` batches and C=64
 feature tables, and through a forced repair, a window overflow, a budget
 overflow and an unsorted batch), in phases 3 (one tile served in each
@@ -528,14 +530,20 @@ def phase_kernels():
             _case(f"knn_exact_banded {name}", x, x, on_grid,
                   lambda x=x, kw=kw: knn_exact_banded_raw(x, K, **kw),
                   lambda x=x, kw=kw: knn_exact_banded_raw_plain(x, K, **kw),
-                  res["knn_exact_banded"], plain_reps=2, extra=extra)
+                  res["knn_exact_banded"], plain_reps=2, extra=extra, queued=True)
 
-    # the packed mode's kernel, and the capped kNN's small-input fallback
-    for name, x, int_valued in (("int C=4", ints[4], True), ("int C=64", ints[64], True),
-                                ("float C=4 (blocks)", pts, False),
-                                ("float C=64", feats, False)):
-        _case(f"knn_packed {name}", x, x, int_valued, lambda x=x: knn_packed(x, K),
-              lambda x=x: knn_packed_plain(x, K), res["knn_packed"], plain_reps=2)
+    # the packed mode's kernel (self-kNN, and 1000 ``queries=`` rows of the
+    # C=64 tables), and the capped kNN's small-input fallback
+    rows = torch.from_numpy(np.random.default_rng(17).permutation(N)[:1000]).to(dev)
+    for name, x, q, int_valued in (
+            ("int C=4", ints[4], None, True), ("int C=64", ints[64], None, True),
+            ("float C=4 (blocks)", pts, None, False), ("float C=64", feats, None, False),
+            ("int C=64 1000 queries", ints[64], ints[64][:, rows].contiguous(), True),
+            ("float C=64 1000 queries", feats, feats[:, rows].contiguous(), False)):
+        _case(f"knn_packed {name}", x, x if q is None else q, int_valued,
+              lambda x=x, q=q: knn_packed(x, K, queries=q),
+              lambda x=x, q=q: knn_packed_plain(x, K, queries=q), res["knn_packed"],
+              plain_reps=2, queued=True)
     small = ints[4][:, :200]  # 1 window of 256 rows: n_win * cap = 8 < k
     before = knn_packed.launches
     _case("knn_packed int C=4 N=200 via knn_capped (n_win*cap < k)", small, small, True,
@@ -1661,6 +1669,16 @@ def main() -> int:
         "bound_ms": c4_bounds["knn_banded C=4 band 2048"][0],
         "bound_by": c4_bounds["knn_banded C=4 band 2048"][1], "library_ms": None}
 
+    # the parity and packed modes' stage 1 (C=4), beside their C=64 stages
+    for name, label, key in (
+            ("knn_exact_banded", "knn_exact_banded float C=4 band 2048",
+             "knn_exact_banded C=4 band 2048"),
+            ("knn_packed", "knn_packed float C=4 (blocks)", "knn_packed C=4")):
+        c4 = pick(knn_res[name], label)
+        next(r for r in kernels if r["name"] == name)["c4"] = {
+            "ms": c4["ms"], "plain_ms": c4["plain_ms"], "bound_ms": c4_bounds[key][0],
+            "bound_by": c4_bounds[key][1], "library_ms": None}
+
     # the capped kNN's C=4 self-kNN (the capped-only path's stage 1) and the
     # recall guard's probes, beside its C=64 self-kNN
     capped_row = next(r for r in kernels if r["name"] == "knn_capped")
@@ -1709,8 +1727,11 @@ def main() -> int:
         "max_abs_err": max(r["max_abs_err"] for r in split),
         "ms": timed["ms"], "plain_ms": timed["plain_ms"], "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": None})
-    for row in kernels:  # the share of its bound each kernel reaches
+    for row in kernels:  # the share of its bound each kernel (and case) reaches
         row["bound_share"] = row["bound_ms"] / row["ms"]
+        for case in row.values():
+            if isinstance(case, dict) and "bound_ms" in case:
+                case["bound_share"] = case["bound_ms"] / case["ms"]
     log(json.dumps({"knn_cases": knn_res, "fused_cases": fused, "scatter_cases": scatter,
                     "gather_cases": gather,
                     "split_cases": split, "eval": evaluated,

@@ -42,7 +42,7 @@ SIGNATURES = {
     "dgcnn_knn_exact_banded": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                _I, _I, _I, _I, _I, _P),
     "dgcnn_knn_packed": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                         _P),
+                         _I, _P),
     "dgcnn_knn_packed_split": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                _I, _I, _P),
     "dgcnn_gather_rows": (_P, _P, _P, _I, _I, _I, _I, _P),

@@ -1,7 +1,9 @@
-// What the two capped packed-key kNN kernels share (knn_banded.cu and
-// knn_capped.cu): the packed key of a (query, row) pair, the sorted
-// per-window lists, the 8 x 8 register tile of dots, the staging of a
-// block's queries, and the merge of the lists into the top-k.
+// What the two-phase kNN kernels share (knn_banded.cu, knn_capped.cu,
+// knn_packed.cu and knn_exact_banded.cu): the packed key of a (query,
+// row) pair, the sorted per-window lists, the 8 x 8 register tile of
+// dots, the staging of a block's queries, and the merges of the lists
+// into the top-k (by packed key, or by (key, row) for the exact banded
+// kernel, whose keys repeat).
 //
 //   score(q, o) = (2 * <x_o, q> - |x_o|^2) - |q|^2       (FP32, FMA dot)
 //   key         = monotone_int(score) >> 1, low idx_bits replaced by a
@@ -63,11 +65,12 @@ __device__ __forceinline__ void stage_queries(float4* qs4, const float* qb_rows,
 // Unroll of the 2-channel steps of tile_dots' loop.
 constexpr int kC2Unroll = 4;
 
-// The 8 x 8 dots of staged queries ty + TY * a and staged rows tx + 32 * c
+// The 8 x 8 dots of staged queries ty + TY * a and staged rows tx + RS * c
 // (both in rows of stride row_stride4), two channels a read: every float
 // read from shared memory feeds 4 FMAs. Each accumulator's chain runs
-// channel after channel from 0.f.
-template <int CV>
+// channel after channel from 0.f. UNROLL: 2-channel steps unrolled (a
+// kernel that keeps many registers live across the call unrolls less).
+template <int CV, int RS = 32, int UNROLL = kC2Unroll>
 __device__ __forceinline__ void tile_dots(float (&acc)[8][8], const float4* __restrict__ qs4,
                                           const float4* __restrict__ xs4, int ty, int TY,
                                           int tx) {
@@ -78,13 +81,13 @@ __device__ __forceinline__ void tile_dots(float (&acc)[8][8], const float4* __re
   for (int a = 0; a < 8; ++a)
 #pragma unroll
     for (int c = 0; c < 8; ++c) acc[a][c] = 0.f;
-#pragma unroll (kC2Unroll)
+#pragma unroll (UNROLL)
   for (int c2 = 0; c2 < CV / 2; ++c2) {
     float2 qf[8], xf[8];
 #pragma unroll
     for (int a = 0; a < 8; ++a) qf[a] = q2[a * TY * XS2 + c2];
 #pragma unroll
-    for (int c = 0; c < 8; ++c) xf[c] = x2[c * 32 * XS2 + c2];
+    for (int c = 0; c < 8; ++c) xf[c] = x2[c * RS * XS2 + c2];
 #pragma unroll
     for (int a = 0; a < 8; ++a)
 #pragma unroll
@@ -204,5 +207,107 @@ __device__ __forceinline__ void merge_lists(const int* lists, bool one_round, in
       prev = best;
     }
     if ((!kBatched || kth != nullptr) && lane == 0) kth[(size_t)b * M + qq] = prev;
+  }
+}
+
+// (k, r) ranks before (ok, orr): the larger key first, then the lower row
+// (the exact banded kernel's order: its keys repeat).
+__device__ __forceinline__ bool ahead(int k, int r, int ok, int orr) {
+  return k > ok || (k == ok && r < orr);
+}
+
+// (v, s) into a list of (key, row) pairs sorted largest key first, whose
+// candidates arrive in ascending row order: the candidate goes before the
+// first entry of a strictly smaller key (so among equal keys the earlier
+// row stays ahead and the list keeps the (key desc, row asc) order), and
+// every entry from there on moves down one slot; a candidate that beats
+// no entry changes nothing. Each slot is computed from the old list alone
+// (no value carried from slot to slot): its key is max(key, min(key
+// above, v)), its row follows the compares of v with the old keys.
+template <int CAP>
+__device__ __forceinline__ void insert_pair(int (&tk)[CAP], int (&ts)[CAP], int v, int s) {
+  bool sw[CAP];  // v passes slot i: true from the candidate's slot on
+#pragma unroll
+  for (int i = 0; i < CAP; ++i) sw[i] = v > tk[i];
+#pragma unroll
+  for (int i = CAP - 1; i > 0; --i) {  // back to front: slot i - 1 still old
+    tk[i] = max(tk[i], min(tk[i - 1], v));
+    ts[i] = sw[i] ? (sw[i - 1] ? ts[i - 1] : s) : ts[i];
+  }
+  tk[0] = max(tk[0], v);
+  ts[0] = sw[0] ? s : ts[0];
+}
+
+// The lexicographic merge of the exact banded kernel: per query, the
+// top-k in (key desc, row asc) order of its n_win <= 64 window lists
+// ([qb][n_win][CAP + 1] keys in `lkeys`, in-window rows s in `lrows`, each
+// list in that order and closed by an INT_MIN sentinel; window w's row s
+// is band row s * n_win + w). Each lane holds the heads of windows lane
+// and lane + 32; a round takes the warp's largest head key
+// (__reduce_max_sync), then the lowest row among the heads of that key
+// (__reduce_min_sync), and pops it. Writes `start` + each winner's row to
+// out[(b * N + q) * K ..], the k-th winner's key to kth[b * N + q], and
+// ovf[b * N + q] = (the largest of the windows' cap-th keys) >= that key.
+// Warp w merges queries w + nwarps * m, m < G, their rounds interleaved;
+// queries past N are skipped. Real keys exceed INT_MIN and at least k
+// real entries exist (n_win * min(cap, rows a window) >= k), so no
+// sentinel and no empty slot of a short window ever wins.
+template <int CAP, int G>
+__device__ __forceinline__ void merge_lists_lex(const int* __restrict__ lkeys,
+                                                const unsigned short* __restrict__ lrows,
+                                                int q0, int b, int N, int K, int n_win,
+                                                int start, int* __restrict__ out,
+                                                int* __restrict__ kth, int* __restrict__ ovf) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+  const int LS = CAP + 1;
+  const int w0 = lane, w1 = lane + 32;
+  int p0[G], p1[G], k0[G], k1[G], r0[G], r1[G], res[G], last[G], capm[G];
+#pragma unroll
+  for (int m = 0; m < G; ++m) {
+    const int lb = (warp + nwarps * m) * n_win * LS;
+    const int c0 = w0 < n_win ? lkeys[lb + w0 * LS + CAP - 1] : INT_MIN;
+    const int c1 = w1 < n_win ? lkeys[lb + w1 * LS + CAP - 1] : INT_MIN;
+    capm[m] = __reduce_max_sync(0xffffffffu, max(c0, c1));
+    p0[m] = lb + (w0 < n_win ? w0 * LS : CAP);  // no window: window 0's sentinel
+    p1[m] = lb + (w1 < n_win ? w1 * LS : CAP);
+    k0[m] = lkeys[p0[m]];
+    r0[m] = lrows[p0[m]] * n_win + w0;
+    k1[m] = lkeys[p1[m]];
+    r1[m] = lrows[p1[m]] * n_win + w1;
+    res[m] = last[m] = INT_MIN;
+  }
+  for (int t = 0; t < K; ++t) {
+#pragma unroll
+    for (int m = 0; m < G; ++m) {
+      const bool first = ahead(k0[m], r0[m], k1[m], r1[m]);
+      const int hk = first ? k0[m] : k1[m], hr = first ? r0[m] : r1[m];
+      const int bk = __reduce_max_sync(0xffffffffu, hk);
+      const int br = __reduce_min_sync(0xffffffffu, hk == bk ? hr : INT_MAX);
+      res[m] = lane == (t & 31) ? br : res[m];
+      last[m] = bk;
+      p0[m] += k0[m] == bk && r0[m] == br;
+      p1[m] += k1[m] == bk && r1[m] == br;
+      k0[m] = lkeys[p0[m]];
+      r0[m] = lrows[p0[m]] * n_win + w0;
+      k1[m] = lkeys[p1[m]];
+      r1[m] = lrows[p1[m]] * n_win + w1;
+    }
+    if ((t & 31) == 31 || t == K - 1) {  // warp-uniform
+#pragma unroll
+      for (int m = 0; m < G; ++m) {
+        const int qq = q0 + warp + nwarps * m;
+        if (qq < N && lane <= (t & 31))
+          out[((size_t)b * N + qq) * K + (t & ~31) + lane] = start + res[m];
+      }
+    }
+  }
+#pragma unroll
+  for (int m = 0; m < G; ++m) {
+    const int qq = q0 + warp + nwarps * m;
+    if (K > 0 && qq < N && lane == 0) {
+      kth[(size_t)b * N + qq] = last[m];
+      ovf[(size_t)b * N + qq] = capm[m] >= last[m] ? 1 : 0;
+    }
   }
 }

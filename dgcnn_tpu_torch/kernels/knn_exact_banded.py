@@ -29,7 +29,12 @@ serves both branches.
 On a CUDA tensor the kernel (``csrc/knn_exact_banded.cu``) computes its
 scores with the flat exact kernel's arithmetic (``csrc/knn_common.cuh``),
 so the wrapper's indices equal :func:`knn_exact`'s on the card bit for bit,
-whatever the input.
+whatever the input. Its block (:func:`launch_geometry`) is 32 queries at
+C >= 16 (a two-phase kernel: the dots of a tile of 512 rows into a key
+tile, then the insertions) and 16 at C <= 8 (a fused kernel: each thread
+scores and inserts its own 4 queries' candidates of one window, tiles of
+1024 rows); the band width is read on the device, so the one geometry
+serves both widths of a launch.
 """
 
 from __future__ import annotations
@@ -51,6 +56,12 @@ from dgcnn_tpu_torch.kernels.knn_exact import knn_exact
 
 _KERNEL_CAPS = (4, 8)
 _INT_MIN = -(2 ** 31)
+SMEM_LIMIT = 232448  # shared memory a Hopper block may take (bytes)
+QUERIES_PER_BLOCK = 32  # the two-phase kernel's block (C >= 16)
+TILE_ROWS = 512  # its staged band rows a tile: 8 j-steps of 64 window slots
+FUSED_QUERIES_PER_BLOCK = 16  # the fused kernel's block (C <= 8)
+FUSED_TILE_ROWS = 1024  # its staged band rows a tile (two buffers): 16 j-steps
+MAX_WINDOWS = 64  # window slots of a j-step
 # the JAX wrapper's query tile halves while qt * (n_pad + 2 * cap * n_win)
 # int32 words exceed the TPU kernel's 12 MiB scratch budget
 # (knn_pallas.py::_DEFAULT_VMEM_MB). The CUDA kernel keeps no score tile,
@@ -73,6 +84,46 @@ def key_to_f32(key: torch.Tensor) -> torch.Tensor:
     k64 = key.to(torch.int64)
     bits = torch.where(k64 >= 0, k64, _INT_MIN - k64).to(torch.int32)
     return bits.view(torch.float32)
+
+
+def launch_block(cv: int) -> int:
+    """Queries a block of the kernel at width ``cv``: 16 (fused, C <= 8)
+    or 32 (two-phase)."""
+    return FUSED_QUERIES_PER_BLOCK if cv <= 8 else QUERIES_PER_BLOCK
+
+
+def smem_bytes(cv: int, n_win: int, cap: int) -> int:
+    """The kernel's shared memory, as ``csrc/knn_exact_banded.cu::smem_bytes``
+    computes it: the staging or, if larger, the per-window lists that alias
+    it (``cap + 1`` keys as int32 and rows as uint16 per query and window).
+    The staging at C >= 16: the block's 32 queries and one tile of 512 rows,
+    in rows of an odd float4 stride, the rows' norms, the key tile of 520
+    ints a query; at C <= 8: two tiles of 1024 rows and their norms."""
+    v = cv // 4
+    xs4 = v if v % 2 else v + 1
+    if cv <= 8:
+        staging = 2 * FUSED_TILE_ROWS * (16 * xs4 + 4)
+    else:
+        staging = (16 * (QUERIES_PER_BLOCK + TILE_ROWS) * xs4 + 4 * TILE_ROWS
+                   + 4 * QUERIES_PER_BLOCK * (TILE_ROWS + 8))
+    return max(staging, 6 * launch_block(cv) * n_win * (cap + 1))
+
+
+def launch_geometry(cv: int, n_win: int, cap: int, query_tile: int) -> int:
+    """Queries a block of the kernel (:func:`launch_block`), the one
+    geometry of a width. A block's queries share one band start, so the
+    query tile must be a multiple of the block; the kernel takes multiples
+    of 32, which every block divides. Raises ValueError for a shape the
+    kernel does not take."""
+    if query_tile % QUERIES_PER_BLOCK:
+        raise ValueError(f"the CUDA kernel takes a query tile that is a multiple of "
+                         f"{QUERIES_PER_BLOCK}, not {query_tile}")
+    if n_win > MAX_WINDOWS:
+        raise ValueError(f"the CUDA kernel takes n_win <= {MAX_WINDOWS}, not {n_win}")
+    if smem_bytes(cv, n_win, cap) > SMEM_LIMIT:
+        raise ValueError(f"the CUDA kernel cannot take C={cv}, n_win={n_win}, cap={cap}: "
+                         f"{smem_bytes(cv, n_win, cap)} bytes of shared memory")
+    return launch_block(cv)
 
 
 def _check_raw(n: int, k: int, band: int, n_win: int, cap: int,
@@ -166,15 +217,12 @@ def knn_exact_banded_raw(
         _check_raw(n, k, n_pad, n_win, cap, query_tile)
     if cap not in _KERNEL_CAPS:
         raise ValueError(f"the CUDA kernel takes cap in {_KERNEL_CAPS}, not {cap}")
-    if n_win > 64:
-        raise ValueError(f"the CUDA kernel takes n_win <= 64, not {n_win}")
-    if query_tile % 32:
-        raise ValueError(f"the CUDA kernel takes a query tile that is a multiple of 32, not {query_tile}")
     if (n_pad if banded is not None else band) // n_win > 65536:
         raise ValueError("the CUDA kernel takes at most 65536 rows per window")
     if x.dtype != torch.float32:
         raise ValueError("x must be float32")
     cv = _build.kernel_width(c)
+    launch_geometry(cv, n_win, cap, query_tile)
     cn = (x * x).sum(-1).contiguous()  # knn_exact's reduction, bit for bit
     if cv != c:
         x = torch.nn.functional.pad(x, (0, cv - c))

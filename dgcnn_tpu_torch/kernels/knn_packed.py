@@ -26,6 +26,14 @@ result is the top-k of the split keys.
 CUDA tensor, counted in ``knn_packed.launches`` (flat) and
 ``_knn_packed_split.launches`` (split), and :func:`knn_packed_plain` or
 :func:`knn_packed_split_plain` on a CPU tensor.
+
+The flat kernel's block takes ``qb`` queries (:func:`launch_geometry`: 64,
+or 32 for a small grid at C <= 8), a warp 8 of them, each query's top-k list
+spread over the warp's lanes; a candidate below the query's k-th key so far
+is dropped, which is exact because the k-th largest key of any subset of the
+rows is at most the k-th largest of all. At C <= 8 a fused kernel scores in
+the warps themselves and drops a score below the float its query's k-th key
+starts at before making its key.
 """
 
 from __future__ import annotations
@@ -39,6 +47,12 @@ from dgcnn_tpu_torch.kernels.knn_exact import knn_exact
 
 _ROW_ALIGN = 128
 _KERNEL_MAX_K = 64
+SMEM_LIMIT = 232448  # shared memory a Hopper block may take (bytes)
+THREADS = 256  # the two-phase kernel's block (C >= 16) ...
+QUERIES_PER_BLOCK = 64  # ... and its queries, 8 a warp
+TILE_ROWS = 64 * THREADS // QUERIES_PER_BLOCK  # its rows a tile: 8 x 8 dots a thread
+FUSED_TILE_ROWS = 256  # the fused kernel's (C <= 8) staged rows a tile
+SMALL_GRID = 128  # blocks below which a fused (C <= 8) launch takes 32-query blocks (132 SMs)
 _QUERY_CHUNK = 1024  # plain version: queries per (B, chunk, n_pad) key tile
 _SPLIT_IDX_BITS = 13  # the split kernel's fixed index field (n_pad <= 8192)
 
@@ -47,6 +61,41 @@ def packed_geometry(n: int) -> tuple[int, int]:
     """(n_pad, idx_bits) of the packed kernel for ``n`` rows."""
     n_pad = -(-n // _ROW_ALIGN) * _ROW_ALIGN
     return n_pad, max(13, (n_pad - 1).bit_length())
+
+
+def _row_stride4(cv: int) -> int:
+    """A staged row's stride in float4 (odd: conflict-free 16-byte reads)."""
+    v = cv // 4
+    return v if v % 2 else v + 1
+
+
+def smem_bytes(cv: int) -> int:
+    """The flat kernel's shared memory, as
+    ``csrc/knn_packed.cu::flat_smem_bytes`` computes it: at C >= 16 (the
+    two-phase kernel) its 64 queries and one tile of :data:`TILE_ROWS` rows
+    (rows of an odd float4 stride), the rows' norms, and the key tile of
+    ``TILE_ROWS + 8`` ints a query; at C <= 8 (the fused kernel, queries in
+    registers) two tiles of :data:`FUSED_TILE_ROWS` rows and their norms,
+    whatever its block."""
+    xs4 = _row_stride4(cv)
+    if cv <= 8:
+        return 2 * FUSED_TILE_ROWS * (16 * xs4 + 4)
+    qb = QUERIES_PER_BLOCK
+    return 16 * (qb + TILE_ROWS) * xs4 + 4 * TILE_ROWS + 4 * qb * (TILE_ROWS + 8)
+
+
+def launch_geometry(cv: int, b: int, m: int) -> int:
+    """Queries a block of the flat kernel (its launch geometry) for ``b`` x
+    ``m`` queries: 64 (8 warps of 8 queries), the two-phase kernel's only
+    block at C >= 16; at C <= 8 the fused kernel takes 32 (4 warps) where
+    64 would leave the card's SMs idle (fewer than :data:`SMALL_GRID`
+    blocks). Raises ValueError where the shared memory would exceed
+    :data:`SMEM_LIMIT` (no width the kernel takes does)."""
+    qb = 32 if cv <= 8 and b * -(-m // 64) < SMALL_GRID else QUERIES_PER_BLOCK
+    if smem_bytes(cv) > SMEM_LIMIT:
+        raise ValueError(f"the packed kNN kernel cannot take C={cv}: "
+                         f"{smem_bytes(cv)} bytes of shared memory")
+    return qb
 
 
 def packed_keys(x: torch.Tensor, q: torch.Tensor, n_pad: int,
@@ -167,12 +216,24 @@ def knn_packed(x: torch.Tensor, k: int, *, queries: torch.Tensor | None = None,
             return torch.zeros((b, q.shape[1], k), dtype=torch.int32)
         return knn_packed_plain(x, k, queries=queries)
     x, q, cn, qn, cv = _operands(x, q, queries is None, k)
+    return launch_kernel(x, q, cn, qn, k, qb=launch_geometry(cv, b, q.shape[1]), pred=pred)
+
+
+def launch_kernel(x: torch.Tensor, q: torch.Tensor, cn: torch.Tensor, qn: torch.Tensor,
+                  k: int, *, qb: int, pred: torch.Tensor | None = None) -> torch.Tensor:
+    """One launch of the flat kernel on prepared CUDA tensors: ``x`` (B, N,
+    cv) and ``q`` (B, M, cv) contiguous and zero-padded to a kernel width,
+    ``cn`` / ``qn`` their row norms, ``qb`` queries a block (as
+    :func:`launch_geometry` returns it). (B, M, k) int32. Counted in
+    ``knn_packed.launches``."""
+    b, n, cv = x.shape
     m = q.shape[1]
+    n_pad, idx_bits = packed_geometry(n)
     flag = _build.predicate(pred, x.device)
     out = torch.empty((b, m, k), dtype=torch.int32, device=x.device)
     err = _build.lib().dgcnn_knn_packed(
         x.data_ptr(), q.data_ptr(), cn.data_ptr(), qn.data_ptr(), out.data_ptr(),
-        None if flag is None else flag.data_ptr(), b, n, m, cv, k, n_pad, idx_bits,
+        None if flag is None else flag.data_ptr(), b, n, m, cv, k, n_pad, idx_bits, qb,
         _stream(x.device))
     _build.check(err, "knn_packed")
     knn_packed.launches += 1

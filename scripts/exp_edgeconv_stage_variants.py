@@ -23,16 +23,17 @@ Prints one JSON line with the card's name and power limit.
 
 from __future__ import annotations
 
-import ctypes
 import importlib.util
 import json
-import shutil
 import subprocess
 import sys
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(HERE))
+sys.path.insert(0, str(HERE / "scripts"))
+
+import kernel_variants as kv  # noqa: E402
 
 _DK_LOOP = "#pragma unroll 2\n    for (int dk = 0; dk < kC / 4; ++dk) {"
 VARIANTS = {
@@ -156,49 +157,13 @@ WARPS16 = {"warps16", "half16"}  # these also run 16 warps with one buffer
 
 
 def _start_build(name: str, patches: list[tuple[str, str]], out_dir: Path):
-    from dgcnn_tpu_torch.kernels import _build
-
-    src_dir = out_dir / name
-    shutil.rmtree(src_dir, ignore_errors=True)
-    shutil.copytree(_build.CSRC, src_dir)
-    text = (src_dir / "edgeconv_fused.cu").read_text()
-    for old, new in patches:
-        if old not in text:
-            raise ValueError(f"{name}: {old!r} is not in edgeconv_fused.cu")
-        text = text.replace(old, new)
-    (src_dir / "edgeconv_fused.cu").write_text(text)
-    procs = [subprocess.Popen(
-        [_build.nvcc_path(), *_build.NVCC_FLAGS, "-c", "-o", str(src_dir / f"{src}.o"),
-         str(src_dir / src)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for src in ("edgeconv_fused.cu", "knn_capped.cu")]
-    return src_dir, procs
+    return kv.start_build(name, patches, out_dir, ("edgeconv_fused.cu",),
+                          ("edgeconv_fused.cu",))
 
 
-def _finish_build(name: str, src_dir: Path, procs):
-    from dgcnn_tpu_torch.kernels import _build
-
-    logs = [p.communicate(timeout=900)[0] for p in procs]
-    if any(p.returncode for p in procs):
-        raise RuntimeError(f"{name}: nvcc failed\n" + "\n".join(logs))
-    so = src_dir / "lib.so"
-    subprocess.run([_build.nvcc_path(), "-shared", "-o", str(so),
-                    *(str(src_dir / f"{s}.o") for s in ("edgeconv_fused.cu", "knn_capped.cu"))],
-                   check=True, timeout=300)
-    lines, keep = [], False
-    for line in logs[0].splitlines():
-        if "Compiling entry" in line:
-            keep = "edgeconv_stage_kernel" in line
-            if keep:
-                lines.append(line.strip().split("'")[1] if "'" in line else line.strip())
-        elif keep and ("Used" in line or "spill" in line):
-            lines.append(line.strip())
-    handle = ctypes.CDLL(str(so))
-    for fn in ("dgcnn_edgeconv_stage", "dgcnn_edgeconv_extrema"):
-        getattr(handle, fn).argtypes = list(_build.SIGNATURES[fn])
-        getattr(handle, fn).restype = ctypes.c_int
-    handle.dgcnn_error_string.argtypes = [ctypes.c_int]
-    handle.dgcnn_error_string.restype = ctypes.c_char_p
-    return handle, lines
+def _finish_build(name: str, *started):
+    handle, log = kv.finish_build(name, *started)
+    return handle, kv.ptxas_lines(log, {"edgeconv_stage_kernel": None})
 
 
 def main(argv=None) -> int:
@@ -227,8 +192,8 @@ def main(argv=None) -> int:
     vec = [case[key] for key in ("sa", "ta", "sb", "tb")]
     want = mod.edgeconv_fused_stage(*cs.stage_args(case))
     results = {}
-    for vname, (src_dir, procs) in started.items():
-        handle, lines = _finish_build(vname, src_dir, procs)
+    for vname, build in started.items():
+        handle, lines = _finish_build(vname, *build)
         print(vname, *lines, sep="\n  ", file=sys.stderr)
         _build._lib = handle
         try:

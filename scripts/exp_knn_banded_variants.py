@@ -21,10 +21,8 @@ every variant. Prints one JSON line with the card's name and power limit.
 
 from __future__ import annotations
 
-import ctypes
 import importlib.util
 import json
-import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -33,6 +31,9 @@ import numpy as np
 
 HERE = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(HERE))
+sys.path.insert(0, str(HERE / "scripts"))
+
+import kernel_variants as kv  # noqa: E402
 
 
 VARIANTS = {
@@ -77,47 +78,15 @@ VARIANTS = {
 
 
 def _build_variant(name: str, patches: list[tuple[str, str]], out_dir: Path):
-    from dgcnn_tpu_torch.kernels import _build
-
-    src_dir = out_dir / name
-    shutil.rmtree(src_dir, ignore_errors=True)
-    shutil.copytree(_build.CSRC, src_dir)
-    for old, new in patches:  # in the kernel's source or the header it shares
-        src = next((src_dir / f for f in ("knn_banded.cu", "knn_select.cuh")
-                    if old in (src_dir / f).read_text()), None)
-        if src is None:
-            raise ValueError(f"{name}: {old!r} is not in knn_banded.cu or knn_select.cuh")
-        src.write_text(src.read_text().replace(old, new))
-    nvcc = _build.nvcc_path()
-    objs, procs = [], []
-    for src in ("knn_banded.cu", "knn_capped.cu"):
-        obj = src_dir / f"{src}.o"
-        objs.append(str(obj))
-        procs.append(subprocess.Popen(
-            [nvcc, *_build.NVCC_FLAGS, "-c", "-o", str(obj), str(src_dir / src)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    logs = [p.communicate(timeout=900)[0] for p in procs]
-    if any(p.returncode for p in procs):
-        raise RuntimeError(f"{name}: nvcc failed\n" + "\n".join(logs))
-    so = src_dir / "lib.so"
-    subprocess.run([nvcc, "-shared", "-o", str(so), *objs], check=True, timeout=300)
-    lines, keep = [], False
-    for line in logs[0].splitlines():
-        if "Compiling entry" in line:
-            keep = "kernelILi6ELi64E" in line or "kernelILi6ELi4E" in line
-            if keep:
-                lines.append(("two-phase" if "tile_kernel" in line else "fused")
-                             + " cap 6, C=" + ("64" if "Li64E" in line else "4"))
-        elif keep and ("Used" in line or "spill" in line):
-            lines.append(line.strip())
-    handle = ctypes.CDLL(str(so))
-    for fn, argtypes in _build.SIGNATURES.items():
-        if hasattr(handle, fn):
-            getattr(handle, fn).argtypes = list(argtypes)
-            getattr(handle, fn).restype = ctypes.c_int
-    handle.dgcnn_error_string.argtypes = [ctypes.c_int]
-    handle.dgcnn_error_string.restype = ctypes.c_char_p
-    return handle, lines
+    """The variant's library (in the kernel's source or the header it
+    shares) and its compiler lines of the cap-6 instances."""
+    started = kv.start_build(name, patches, out_dir, ("knn_banded.cu", "knn_select.cuh"),
+                             ("knn_banded.cu",))
+    handle, log = kv.finish_build(name, *started)
+    keep = {f"knn_banded{kind}ILi6ELi{c}E": f"{label} cap 6, C={c}"
+            for kind, label in (("_tile_kernel", "two-phase"), ("_kernel", "fused"))
+            for c in (64, 4)}
+    return handle, kv.ptxas_lines(log, keep)
 
 
 def main(argv=None) -> int:

@@ -41,12 +41,13 @@ sys.path.insert(0, __file__.rsplit("/", 2)[0])
 B, N, K = 8, 7000, 30
 # kernel-name fragments -> group, first match wins
 GROUPS = (
-    ("knn_exact_banded_kernel", "knn_exact_banded"),
+    ("knn_exact_banded", "knn_exact_banded"),  # the two-phase and the fused kernel
     ("knn_packed_kernel", "knn_packed"),
     ("knn_banded_kernel", "knn_banded"),
     ("knn_banded_tile_kernel", "knn_banded"),
     ("knn_capped_kernel", "knn_capped"),
     ("knn_exact_kernel", "knn_exact"),
+    ("knn_split_kernel", "knn_packed_split"),
     ("knn_split_merge", "knn_packed_split (merge)"),
     ("gather_rows", "gather_rows"),
     ("scatter_rows", "scatter_add_rows"),

@@ -39,6 +39,7 @@ from dgcnn_tpu_torch.kernels.knn_exact_banded import (
     knn_exact_banded_raw_plain,
 )
 from dgcnn_tpu_torch.kernels.knn_packed import knn_packed, knn_packed_plain
+from dgcnn_tpu_torch.kernels.knn_packed import launch_kernel as knn_packed_launch
 from dgcnn_tpu_torch.models.dgcnn import DGCNNConfig, init_dgcnn
 from torch_port_helpers import random_bn, replay_knn, sorted_blocks
 
@@ -276,6 +277,93 @@ def test_packed_kernel_equals_plain_on_integer_inputs(dev, c):
     assert torch.equal(knn_packed(x, 30), knn_packed_plain(x, 30))
     assert torch.equal(knn_packed(x, 40, queries=q), knn_packed_plain(x, 40, queries=q))
     assert knn_packed.launches == before + 2
+
+
+# the exact banded kernel's shapes: (c, b, n, band, n_win, cap, qt, k) — the
+# parity forward's stage 1 (C=4, band 2048) and stages 2-3 (C=64, full
+# width), cap 4, 16 / 32 / 48 windows, query tiles 64 and 512, ragged N
+# (4500: padding rows in the last band; 1001), one cloud, windows shorter
+# than cap, k = 20 and 40
+EXACT_BANDED_CASES = [
+    (4, 8, 7000, 2048, 64, 8, 256, 30), (64, 8, 7000, 7040, 64, 8, 256, 30),
+    (4, 8, 7000, 2048, 64, 4, 256, 30), (4, 2, 7000, 1024, 16, 8, 256, 30),
+    (4, 2, 7000, 2048, 64, 8, 64, 20), (4, 2, 7000, 2048, 64, 8, 512, 40),
+    (64, 2, 4500, 4608, 64, 8, 256, 30), (3, 1, 1001, 512, 16, 8, 128, 30),
+    (8, 1, 4500, 256, 64, 8, 128, 30), (32, 2, 4500, 4608, 64, 4, 256, 30),
+    (8, 1, 4500, 128, 32, 8, 128, 20),  # 32 windows of 4 rows (< cap)
+    (4, 1, 4500, 384, 48, 8, 128, 30),  # 48 windows: 16 of a j-step's 64 slots idle
+]
+
+
+@pytest.mark.parametrize("c, b, n, band, n_win, cap, qt, k", EXACT_BANDED_CASES)
+def test_exact_banded_kernel_shapes_equal_plain_on_integer_inputs(dev, c, b, n, band, n_win,
+                                                                  cap, qt, k):
+    """Integers in [0, 16): keys repeat everywhere, so the (key, row) order
+    decides; all three outputs equal the plain version's, and a launch
+    whose ``banded`` flag reads False equals the plain version at full
+    width."""
+    x, = _on(dev, np.random.default_rng(c + n + band).integers(0, 16, (b, n, c))
+             .astype(np.float32))
+    kw = dict(band=band, n_win=n_win, cap=cap, query_tile=qt)
+    got = knn_exact_banded_raw(x, k, **kw)
+    want = knn_exact_banded_raw_plain(x, k, **kw)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    n_pad = -(-n // 128) * 128
+    full = knn_exact_banded_raw(x, k, banded=torch.zeros((), dtype=torch.bool, device=dev), **kw)
+    want_full = knn_exact_banded_raw_plain(x, k, **{**kw, "band": n_pad})
+    assert all(torch.equal(g, w) for g, w in zip(full, want_full))
+
+
+# the packed kernel's shapes: (c, b, n, m, k) — m None: self-kNN. The packed
+# forward's stage 1 (C=4) and stages 2-3 (C=64), 1000 queries, k = 20, 40,
+# 64, ragged N, one cloud, 15 index bits
+PACKED_CASES = [
+    (4, 8, 7000, None, 30), (64, 8, 7000, None, 30), (64, 8, 7000, 1000, 30),
+    (4, 2, 7000, None, 20), (4, 2, 7000, None, 40), (64, 2, 7000, 300, 64),
+    (64, 2, 4500, None, 30), (3, 1, 1001, None, 30), (4, 1, 30000, None, 30),
+]
+
+
+@pytest.mark.parametrize("c, b, n, m, k", PACKED_CASES)
+def test_packed_kernel_shapes_equal_plain_on_integer_inputs(dev, c, b, n, m, k):
+    rng = np.random.default_rng(c + n + k)
+    x, = _on(dev, rng.integers(0, 64 if n > 8192 else 16, (b, n, c)).astype(np.float32))
+    q = None if m is None else x[:, torch.randperm(n, device=dev)[:m]].contiguous()
+    before = knn_packed.launches
+    got = knn_packed(x, k, queries=q)
+    torch.cuda.synchronize()
+    assert knn_packed.launches == before + 1
+    assert torch.equal(got, knn_packed_plain(x, k, queries=q))
+
+
+@pytest.mark.parametrize("c, m, k", [(64, None, 30), (4, None, 30), (64, 1000, 40),
+                                     (4, 200, 64)])
+def test_packed_kernel_geometries_agree_bit_for_bit_on_floats(dev, c, m, k):
+    """The fused kernel's two block sizes (64 and 32 queries, C <= 8)
+    return the same indices, bit for bit, on floats too: the keys are
+    unique and each dot is one fmaf chain; the two-phase kernel (C >= 16)
+    takes 64 only and refuses 32; a False predicate leaves the output as
+    it was."""
+    rng = np.random.default_rng(c + k)
+    x, = _on(dev, sorted_blocks(8, 7000, seed=5) if c == 4
+             else rng.standard_normal((8, 7000, 64)).astype(np.float32))
+    q = x if m is None else x[:, torch.randperm(7000, device=dev)[:m]].contiguous()
+    cn, qn = (x * x).sum(-1), (q * q).sum(-1)
+    want = knn_packed_launch(x, q, cn, qn, k, qb=64)
+    other = 32 if c <= 8 else 64
+    if c > 8:
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            knn_packed_launch(x, q, cn, qn, k, qb=32)
+    assert torch.equal(knn_packed_launch(x, q, cn, qn, k, qb=other), want)
+    no = torch.zeros((), dtype=torch.bool, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    out = knn_packed_launch(x, q, cn, qn, k, qb=other)
+    out.fill_(-7)
+    del out
+    skipped = knn_packed_launch(x, q, cn, qn, k, qb=other, pred=no)
+    torch.cuda.synchronize()
+    assert (skipped == -7).all()
 
 
 def test_parity_wrapper_equals_the_flat_exact_kernel(dev):

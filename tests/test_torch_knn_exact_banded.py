@@ -77,6 +77,18 @@ def test_raw_plain_matches_jax_kernel_bits(n, c, band, n_win, cap, qt, sort):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w), err_msg=name)
 
 
+def test_raw_plain_matches_jax_kernel_at_stage1_windows():
+    """The parity forward's stage-1 windows: 64 windows of 32 rows under cap
+    8 in a band of 2048, query tile 256, one sorted cloud of 4500 rows (its
+    last band holds padding rows)."""
+    x = grid_cloud(np.random.default_rng(4500), 1, 4500, 4)
+    kw = dict(band=2048, n_win=64, cap=8, query_tile=256)
+    want = _knn_exact_jit(jnp.asarray(x), 30, interpret=True, **kw)
+    got = knn_exact_banded_raw_plain(torch.from_numpy(x), 30, **kw)
+    for name, g, w in zip(("idx", "kth", "ovf"), got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w), err_msg=name)
+
+
 def test_raw_overflow_flags_the_adversarial_window():
     """tests/test_knn_exact.py's residue-class cluster: rows r = 3 (mod
     n_win) hold every true neighbour of each other, more than cap=4 deep in
