@@ -11,8 +11,10 @@ Phases, each of which raises on failure (exit code 1, no result line):
    on the card, at the main path's shapes (B=8, N=7000, k=30; C=4 for the
    stage-1 kNN, C=64 otherwise; bands 2048 / 4096, 64 windows, cap 6),
    with median times of both: capped kNN, fused stage and extrema, banded
-   kNN, exact kNN (256 repair queries, and a 40000-row self-kNN, the
-   capped kNN's fallback past 15 index bits); then the banded wrappers on
+   kNN, exact kNN (256 random integer queries; the stage-1 repair's own
+   call in the default forward, its 256 queries per cloud with their rows
+   as the kernel's hint; a 40000-row self-kNN, the capped kNN's fallback
+   past 15 index bits); then the banded wrappers on
    the card: a forced repair, an unsorted batch, a recall-guard trip;
 3. the capped-only serving path (``knn_impl="pallas_capped"``, bands 0):
    a seeded full-width checkpoint in the JAX package's .npz layout and
@@ -83,8 +85,12 @@ Phase 2 holds the fused stage and extrema kernels within 1e-5 of their
 plain versions on ``stage_cases``: the production shape with ``knn_capped``
 indices (spread over the cloud) and with forward-like ones (the banded kNN
 of ``make_blocks`` points at band 2048 and of C=64 features at band 4096),
-and ragged shapes (B=1, N=1001, k = 20, 30, 40, indices outside [0, N));
-both kernels are timed by ``cuda_ms_many`` at the production shape. Each
+the default forward's own stage-3 indices (:func:`forward_capture`), and
+ragged shapes (B=1, N=1001, k = 20, 30, 40, indices outside [0, N));
+both kernels are timed by ``cuda_ms_many`` at the production shape; the
+extrema's row also carries the stage-3 case and a second bound, its
+gathered rows at the card's L2 read rate for such a gather, measured in
+the same run by a diagnostic build (:data:`DIAG_EXTREMA_L2`). Each
 row of the kernels' JSON line carries its bound's share of its time
 (``bound_share``). Phase 2 also holds the two scatter kernels of the
 training backward against their plain versions, with kNN indices of
@@ -280,6 +286,108 @@ def int_cloud(b: int, n: int, seed: int) -> np.ndarray:
                  axis=-1).astype(np.float32)
     order = np.argsort(x[..., 0], axis=1, kind="stable")
     return np.ascontiguousarray(np.take_along_axis(x, order[..., None], axis=1))
+
+
+def forward_capture(dev) -> dict:
+    """One default forward at full width (emb 1024, weights from seed 1,
+    ``make_blocks(B, N, seed=0)``, a guarded dispatch) on the card, with
+    what its kernels were handed recorded: the stage-1 repair's exact kNN
+    call (``x``, its queries and their rows, as ``repair_queries`` picks
+    them, and the failing queries per cloud) and the three stages'
+    neighbour indices."""
+    import torch
+
+    from dgcnn_tpu_torch.kernels import knn_banded as kb
+    from dgcnn_tpu_torch.models.dgcnn import DGCNN, DGCNNConfig, init_dgcnn
+
+    rec = {"idx": []}
+    real_repair, real_knn = kb.repair_queries, DGCNN._knn
+
+    def repair(x, k, idx, fail, r_budget, pred):
+        # repair_queries' rows: lax.top_k's order over the fail flags
+        f = fail.to(torch.int64)
+        rank = torch.where(fail, f.cumsum(1) - 1,
+                           f.sum(1, keepdim=True) + (1 - f).cumsum(1) - 1)
+        order = torch.empty_like(rank).scatter_(
+            1, rank, torch.arange(x.shape[1], device=x.device).expand(*fail.shape))
+        pos = order[:, :r_budget].contiguous()
+        rec["repair"] = (x, x.gather(1, pos[..., None].expand(-1, -1, x.shape[-1])), pos)
+        rec["fails"] = fail.sum(1).tolist()
+        return real_repair(x, k, idx, fail, r_budget, pred)
+
+    def knn(self, *a, **kw):
+        out = real_knn(self, *a, **kw)
+        rec["idx"].append(out[0] if isinstance(out, tuple) else out)
+        return out
+
+    cfg = DGCNNConfig(k=K, emb_dims=1024)
+    model = DGCNN(cfg)
+    model.load_state_dict(init_dgcnn(cfg, torch.Generator().manual_seed(1)).state_dict())
+    kb.repair_queries, DGCNN._knn = repair, knn
+    try:
+        with torch.inference_mode():
+            model.to(dev)(torch.from_numpy(make_blocks(B, N, seed=0)).to(dev), band_mode=1)
+    finally:
+        kb.repair_queries, DGCNN._knn = real_repair, real_knn
+    return rec
+
+
+# A diagnostic build of the extrema kernel (scripts/kernel_variants.py)
+# that reads every (query, neighbour) row from L2 (ld.global.cg, past L1),
+# its warps striding over all queries (no range an SM shares in L1). On
+# row-local indices it times the card's L2 read rate for this gather, row
+# 3's second bound.
+DIAG_EXTREMA_L2 = [
+    ("const float2 g = __ldg(reinterpret_cast<const float2*>(tab + (size_t)nb * kC + c));",
+     "const float2 g = __ldcg(reinterpret_cast<const float2*>(tab + (size_t)nb * kC + c));"),
+    ("  for (long long row = lo + warp; row < hi; row += kXWarps) {",
+     "  for (long long row = (long long)blockIdx.x * kXWarps + warp; row < total;\n"
+     "       row += (long long)gridDim.x * kXWarps) {")]
+
+
+def start_l2_diag(out_dir):
+    """Start building :data:`DIAG_EXTREMA_L2` (one nvcc per source, in the
+    background); :func:`l2_gather_rate` finishes it."""
+    from pathlib import Path
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts"))
+    import kernel_variants as kv
+
+    return kv.start_build("diag_extrema_l2", DIAG_EXTREMA_L2, Path(out_dir),
+                          ("edgeconv_fused.cu",), ("edgeconv_fused.cu",))
+
+
+def l2_gather_rate(started, table, k) -> dict:
+    """The card's L2 read rate for the extrema's gather, from the
+    diagnostic build: B*N*k rows of 256 bytes, each query's neighbours the
+    rows around its own (so the table, 1.8 MB a cloud, stays in L2), 50
+    launches per event pair (:func:`cuda_ms_many`). Returns the time, the
+    bytes and the rate."""
+    import ctypes
+
+    import torch
+
+    import kernel_variants as kv
+
+    lib, _ = kv.finish_build("diag_extrema_l2", *started)
+    b, n, _ = table.shape
+    local = (torch.arange(n, device=table.device)[:, None]
+             + torch.arange(k, device=table.device) - k // 2).clamp(0, n - 1)
+    idx = local.to(torch.int32).expand(b, n, k).contiguous()
+    ones = torch.ones(64, device=table.device)
+    out = torch.empty_like(table)
+
+    def run():
+        err = lib.dgcnn_edgeconv_extrema(
+            table.data_ptr(), idx.data_ptr(), table.data_ptr(), ones.data_ptr(),
+            ones.data_ptr(), ones.data_ptr(), out.data_ptr(), b, n, k, 0,
+            ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+        if err:
+            raise RuntimeError(f"diag_extrema_l2: CUDA error {err}")
+
+    ms = cuda_ms_many(run)
+    nbytes = 256.0 * b * n * k
+    return {"ms": ms, "bytes": nbytes, "bytes_per_s": nbytes / ms * 1e3}
 
 
 def phase_device():
@@ -482,10 +590,26 @@ def phase_kernels():
                   queued=c == 4)
     banded_geometries(rng)
 
-    q = ints[4][:, torch.randperm(N, device=dev)[:256]]  # the repair's queries
+    q = ints[4][:, torch.randperm(N, device=dev)[:256]]  # random rows, as many as the repair's
     _case("knn_exact int C=4, 256 queries", ints[4], q, True,
           lambda: knn_exact(ints[4], K, queries=q),
-          lambda: knn_exact_plain(ints[4], K, queries=q), res["knn_exact"])
+          lambda: knn_exact_plain(ints[4], K, queries=q), res["knn_exact"], queued=True)
+    # the repair's own call in the default forward: the 256 rows per cloud
+    # repair_queries picks on make_blocks (the failing rows first), with
+    # their rows as the kernel's hint, which must change no index
+    fwd = forward_capture(dev)
+    xr, qr, rows = fwd["repair"]
+
+    def hint_free(got, want):
+        if not torch.equal(got, knn_exact(xr, K, queries=qr)):
+            raise AssertionError("knn_exact: the row hint changed the indices")
+
+    _case("knn_exact repair (make_blocks, the forward's 256 queries)", xr, qr, False,
+          lambda: knn_exact(xr, K, queries=qr, query_rows=rows),
+          lambda: knn_exact_plain(xr, K, queries=qr), res["knn_exact"], queued=True,
+          extra=hint_free)
+    res["knn_exact"][-1]["failing_queries_per_cloud"] = fwd["fails"]
+    log(f"knn_exact repair: failing queries per cloud {fwd['fails']}")
     big = torch.from_numpy(rng.integers(0, 64, (1, 40000, 4)).astype(np.float32)).to(dev)
     _case("knn_exact int C=4, self N=40000 (capped past 15 index bits)", big, big, True,
           lambda: knn_capped(big, K), lambda: knn_exact_plain(big, K), res["knn_exact"],
@@ -561,7 +685,8 @@ def stage_cases(dev) -> dict:
     N=7000, k=30) from ``knn_capped`` on seeded C=64 normals (spread over
     the whole cloud), and forward-like ones, local in x-sorted order: the
     banded kNN of ``make_blocks`` points at band 2048 (stage 1) and of the
-    C=64 normals at band 4096 (stage 2); then ragged cases, B=1, N=1001,
+    C=64 normals at band 4096 (stage 2), and the default forward's own
+    stage-3 indices (:func:`forward_capture`); then ragged cases, B=1, N=1001,
     k = 20, 30, 40, with uniform indices of which a few lie outside
     [0, N) (clamped). Each case: a dict of the wrappers' arguments."""
     import torch
@@ -598,6 +723,8 @@ def stage_cases(dev) -> dict:
             pts, K, band=2048, query_tile=512, **BANDS)[0]},
         "banded stage 2 (C=64, band 4096)": {**prod, "idx": knn_banded_raw(
             feats, K, band=4096, query_tile=384, **BANDS)[0]},
+        "stage 3 (the default forward's indices)": {**prod,
+                                                    "idx": forward_capture(dev)["idx"][2]},
     }
     for k in (20, 30, 40):
         idx = rng.integers(-3, 1001 + 3, (1, 1001, k)).astype(np.int32)
@@ -629,6 +756,8 @@ def phase_fused(dev) -> list:
         edgeconv_fused_extrema, edgeconv_fused_extrema_plain, edgeconv_fused_stage,
         edgeconv_fused_stage_plain)
 
+    diag = start_l2_diag(os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                                      "chip_smoke"))
     inputs = stage_cases(dev)
     records = []
     for name, fn, plain, args in (
@@ -657,6 +786,12 @@ def phase_fused(dev) -> list:
         records.append({"name": name, "max_abs_err": max(r["max_abs_err"] for r in cases),
                         "ms": cases[0]["ms"], "plain_ms": cases[0]["plain_ms"],
                         "cases": cases})
+    # the extrema's second bound: its B*N*k gathered rows at the card's L2
+    # read rate for such a gather
+    l2 = l2_gather_rate(diag, inputs["capped C=64"]["table"], K)
+    log(f"L2 gather ceiling: {l2['bytes'] / 1e6:.1f} MB in {l2['ms']:.4f} ms, "
+        f"{l2['bytes_per_s'] / 1e12:.3f} TB/s")
+    records[1]["l2_gather"] = l2
     return records
 
 
@@ -1662,6 +1797,22 @@ def main() -> int:
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
     } for name, src, tpu, cases, timed, (b_ms, b_by) in rows]
     timing = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    # the extrema kernel on the default forward's stage-3 indices, and its
+    # second bound: the gathered rows at the measured L2 read rate
+    ex_row = next(r for r in kernels if r["name"] == "edgeconv_fused_extrema")
+    l2 = fused[1]["l2_gather"]
+    ex_row["l2_bound_ms"] = l2["ms"]
+    ex_row["l2_bytes_per_s"] = l2["bytes_per_s"]
+    stage3 = pick(fused[1]["cases"], "stage 3 (the default forward's indices)")
+    ex_row["stage3_forward"] = {
+        "ms": stage3["ms"], "plain_ms": fused[1]["plain_ms"], "bound_ms": ex_row["bound_ms"],
+        "bound_by": ex_row["bound_by"], "l2_bound_ms": l2["ms"], "library_ms": None}
+    # the flat exact kNN at the repair's own call in the default forward
+    rep = pick(knn_res["knn_exact"], "knn_exact repair (make_blocks, the forward's 256 queries)")
+    b_ms, b_by = bound(bnc4 * 5 + 4.0 * B * 256 * (4 + K), 2.0 * B * 256 * N * 4)
+    next(r for r in kernels if r["name"] == "knn_exact")["repair"] = {
+        "ms": rep["ms"], "plain_ms": rep["plain_ms"], "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": None, "failing_queries_per_cloud": rep["failing_queries_per_cloud"]}
     # the banded kNN's C=4 width (stage 1), beside its C=64 one
     c4 = pick(knn_res["knn_banded"], "knn_banded float C=4 band 2048")
     next(r for r in kernels if r["name"] == "knn_banded")["c4"] = {

@@ -38,7 +38,7 @@ SIGNATURES = {
                          _I, _I, _I, _I, _I, _I, _I, _P),
     "dgcnn_knn_banded": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                          _I, _I, _I, _I, _I, _I, _P),
-    "dgcnn_knn_exact": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "dgcnn_knn_exact": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     "dgcnn_knn_exact_banded": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                _I, _I, _I, _I, _I, _P),
     "dgcnn_knn_packed": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
@@ -48,7 +48,7 @@ SIGNATURES = {
     "dgcnn_gather_rows": (_P, _P, _P, _I, _I, _I, _I, _P),
     "dgcnn_edgeconv_stage": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                              _I, _I, _I, _P),
-    "dgcnn_edgeconv_extrema": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    "dgcnn_edgeconv_extrema": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "dgcnn_scatter_add_rows": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     "dgcnn_scatter_stage_tail": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
 }

@@ -77,9 +77,23 @@
 // library): 168 registers (the 384-thread bound), no spill;
 // `cuobjdump -sass`: 512 FFMA in the product loop, no HMMA or GMMA.
 //
-// The extrema kernel needs no shared memory: one warp per query row, lane
-// l owns channels 2l and 2l+1 (each gathered row is one coalesced 256-byte
-// load), a running max and min per channel.
+// Extrema design. The kernel only gathers and compares, so what bounds it
+// is the gather: B*N*k rows of 256 bytes (430 MB at B=8, N=7000, k=30) from
+// a table (1.8 MB a cloud) that L2 holds. A warp takes a query, lane l its
+// channels 2l and 2l + 1 (a gathered row is one coalesced 256-byte load),
+// eight rows in flight, a running max and min per channel. Consecutive
+// queries of a spatially ordered cloud share neighbours (at the default
+// forward's stage 3, 64 consecutive queries name ~40% distinct rows), so
+// each block takes a contiguous range of queries (one block of kXWarps
+// warps an SM, the warps on neighbouring queries) and prefers L1 to shared
+// memory: rows its warps share are read from L2 once more rarely. Rows
+// come by the read-only path, the indices and bvec streamed past L1.
+// (Deduplicating a tile's rows in shared memory and staging each once,
+// measured on the card, lost: the hash, the staging and the fold of one
+// tile could not overlap within an SM.) Max and min are exact in any
+// order, and fmaxf / fminf skip a NaN row, so the outputs equal the first
+// design's (a warp per query over a grid-stride of queries; a zero's sign
+// may differ).
 
 #include <cuda_runtime.h>
 #include <algorithm>
@@ -92,7 +106,6 @@ namespace {
 
 constexpr int kC = 64;  // table / W2 width (every DGCNN EdgeConv stage)
 constexpr int kLanes = 32;
-constexpr int kWarps = 8;  // extrema kernel: warps per block
 constexpr unsigned kFull = 0xffffffffu;
 // stage kernel
 constexpr int kUnitRows = 32;        // gathered rows a warp multiplies at once
@@ -101,6 +114,7 @@ constexpr int kRowStride4 = kRowStride / 4;
 constexpr int kUnitFloats = (kUnitRows + 1) * kRowStride;  // 32 rows + bvec
 constexpr int kMaxStageWarps = 12;
 constexpr int kMaxBuffers = 2;
+constexpr int kXWarps = 32;  // extrema kernel: warps a block, one block an SM
 
 // LeakyReLU, slope 0.2: the same bits as v >= 0 ? v : 0.2f * v (0.2f * v
 // rounds to at most v for v >= 0 and at least v below 0), in two instructions
@@ -318,7 +332,9 @@ edgeconv_stage_kernel(const float* __restrict__ table,  // (B, N, 64)
   cp_async_wait<0>();  // no copy outlives the block
 }
 
-__global__ void __launch_bounds__(kLanes * kWarps)
+// The extrema kernel: a warp per query, each block a contiguous range of
+// queries, one block of kXWarps warps an SM (see the design note above).
+__global__ void __launch_bounds__(kLanes * kXWarps, 1)
 edgeconv_extrema_kernel(const float* __restrict__ table,  // (B, N, 64)
                         const int* __restrict__ idx,      // (B, N, K)
                         const float* __restrict__ bvec,   // (B, N, 64)
@@ -334,27 +350,27 @@ edgeconv_extrema_kernel(const float* __restrict__ table,  // (B, N, 64)
   const float2 s2 = *reinterpret_cast<const float2*>(scale + c);
   const float2 t2 = *reinterpret_cast<const float2*>(shift + c);
   const long long total = (long long)B * N;
-  for (long long row = (long long)blockIdx.x * kWarps + warp; row < total;
-       row += (long long)gridDim.x * kWarps) {
+  const long long per = (total + gridDim.x - 1) / gridDim.x;
+  const long long lo = blockIdx.x * per, hi = min(total, lo + per);
+  for (long long row = lo + warp; row < hi; row += kXWarps) {
     const long long b = row / N;
     const float* tab = table + (size_t)b * N * kC;
     const int* irow = idx + (size_t)row * K;
     float mx0 = -INFINITY, mx1 = -INFINITY, mn0 = INFINITY, mn1 = INFINITY;
     for (int j0 = 0; j0 < K; j0 += kLanes) {
-      const int mine = irow[min(j0 + lane, K - 1)];
+      const int mine = __ldcs(irow + min(j0 + lane, K - 1));
       const int cnt = min(kLanes, K - j0);
-#pragma unroll 4
+#pragma unroll 8
       for (int jj = 0; jj < cnt; ++jj) {
-        int nb = __shfl_sync(0xffffffffu, mine, jj);
-        nb = min(max(nb, 0), N - 1);
-        const float2 g = *reinterpret_cast<const float2*>(tab + (size_t)nb * kC + c);
+        const int nb = min(max(__shfl_sync(kFull, mine, jj), 0), N - 1);
+        const float2 g = __ldg(reinterpret_cast<const float2*>(tab + (size_t)nb * kC + c));
         mx0 = fmaxf(mx0, g.x);
         mx1 = fmaxf(mx1, g.y);
         mn0 = fminf(mn0, g.x);
         mn1 = fminf(mn1, g.y);
       }
     }
-    const float2 bv = *reinterpret_cast<const float2*>(bvec + (size_t)row * kC + c);
+    const float2 bv = __ldcs(reinterpret_cast<const float2*>(bvec + (size_t)row * kC + c));
     const float sel0 = __fadd_rn(pos0 ? mx0 : mn0, bv.x);
     const float sel1 = __fadd_rn(pos1 ? mx1 : mn1, bv.y);
     *reinterpret_cast<float2*>(out + (size_t)row * kC + c) =
@@ -403,15 +419,31 @@ extern "C" int dgcnn_edgeconv_stage(const float* table, const int* idx,
   return cudaGetLastError();
 }
 
+// table/bvec/out (B,N,64), idx (B,N,K) int32, gamma/scale/shift (64,).
+// `grid` blocks, each a contiguous range of queries (0: one an SM). Returns
+// a cudaError_t.
 extern "C" int dgcnn_edgeconv_extrema(const float* table, const int* idx,
                                       const float* bvec, const float* gamma,
                                       const float* scale, const float* shift,
-                                      float* out, int B, int N, int K,
+                                      float* out, int B, int N, int K, int grid,
                                       void* stream) {
+  if (K < 1 || grid < 0) return cudaErrorInvalidValue;
   const long long rows = (long long)B * N;
-  long long blocks = (rows + kWarps - 1) / kWarps;
-  if (blocks > 132 * 16) blocks = 132 * 16;  // grid-stride beyond ~16 blocks per SM
-  edgeconv_extrema_kernel<<<(unsigned)blocks, kLanes * kWarps, 0,
+  if (rows == 0) return cudaSuccess;
+  // all of the SM's on-chip memory as L1: the kernel takes no shared memory
+  cudaError_t err = cudaFuncSetAttribute(edgeconv_extrema_kernel,
+                                         cudaFuncAttributePreferredSharedMemoryCarveout, 0);
+  if (err != cudaSuccess) return err;
+  long long blocks = grid;
+  if (blocks == 0) {
+    int dev = 0, sms = 0;
+    if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+    if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+      return err;
+    blocks = sms;
+  }
+  blocks = std::min(blocks, rows);
+  edgeconv_extrema_kernel<<<(unsigned)blocks, kLanes * kXWarps, 0,
                             static_cast<cudaStream_t>(stream)>>>(
       table, idx, bvec, gamma, scale, shift, out, B, N, K);
   return cudaGetLastError();

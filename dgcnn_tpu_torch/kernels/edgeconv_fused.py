@@ -15,7 +15,8 @@ version on CPU tensors. The plain versions build the (B, N, k, C)
 gathered tensor that the kernels never write to device memory.
 Neighbour indices are clamped to [0, N), as the unfused chain's gather
 does. :func:`launch_geometry` picks the stage kernel's warps per block and
-staging buffers; :func:`launch_stage` launches it at a given geometry.
+staging buffers; :func:`launch_stage` launches it at a given geometry;
+:func:`launch_extrema` launches the extrema kernel at a given grid.
 """
 
 from __future__ import annotations
@@ -99,6 +100,24 @@ def smem_bytes(warps: int, nbuf: int) -> int:
     return 4 * _WIDTH * _WIDTH + warps * nbuf * _UNIT_BYTES
 
 
+def launch_extrema(table, idx, bvec, vectors, grid: int = 0) -> torch.Tensor:
+    """The extrema kernel on checked, contiguous CUDA tensors: ``grid``
+    blocks, each a contiguous range of queries (0: one an SM). Not counted:
+    :func:`edgeconv_fused_extrema` counts its launches."""
+    b, n, _ = table.shape
+    if idx.shape[-1] < 1 or grid < 0:
+        raise ValueError(f"the extrema kernel needs k >= 1 neighbours and a grid >= 0, not "
+                         f"k={idx.shape[-1]}, grid={grid}")
+    out = torch.empty((b, n, _WIDTH), dtype=torch.float32, device=table.device)
+    err = _build.lib().dgcnn_edgeconv_extrema(
+        table.data_ptr(), idx.data_ptr(), bvec.data_ptr(),
+        *(v.data_ptr() for v in vectors), out.data_ptr(), b, n, idx.shape[-1], grid,
+        _stream(table.device),
+    )
+    _build.check(err, "edgeconv_fused_extrema")
+    return out
+
+
 def launch_geometry(k: int) -> tuple[int, int]:
     """``(warps, nbuf)`` of a stage-kernel launch for ``k`` neighbours:
     warps per block (one query each at a time) and staging buffers per
@@ -169,17 +188,8 @@ def edgeconv_fused_extrema(table, idx, bvec, gamma, scale,
         raise ValueError(f"edgeconv_fused_extrema runs on cpu or cuda, not {table.device}")
     vectors = (gamma, scale, shift)
     _check_cuda(table, idx, bvec, vectors)
-    b, n, _ = table.shape
-    k = idx.shape[-1]
     table, idx, bvec = (t.contiguous() for t in (table, idx, bvec))
-    vectors = [v.contiguous() for v in vectors]
-    out = torch.empty((b, n, _WIDTH), dtype=torch.float32, device=table.device)
-    err = _build.lib().dgcnn_edgeconv_extrema(
-        table.data_ptr(), idx.data_ptr(), bvec.data_ptr(),
-        *(v.data_ptr() for v in vectors), out.data_ptr(), b, n, k,
-        _stream(table.device),
-    )
-    _build.check(err, "edgeconv_fused_extrema")
+    out = launch_extrema(table, idx, bvec, [v.contiguous() for v in vectors])
     edgeconv_fused_extrema.launches += 1
     return out
 

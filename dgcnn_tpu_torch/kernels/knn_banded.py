@@ -352,8 +352,9 @@ def repair_queries(x: torch.Tensor, k: int, idx: torch.Tensor,
     order = torch.empty_like(rank).scatter_(
         1, rank, torch.arange(n, device=x.device).expand(b, n))
     pos = order[:, :r_budget]
+    # the rows as the kernel's hint: it visits each query's neighbourhood first
     rep = knn_exact(x, k, queries=x.gather(1, pos[..., None].expand(-1, -1, c)),
-                    pred=pred)
+                    pred=pred, query_rows=pos)
     rows = pos[..., None].expand(-1, -1, k)
     new = torch.where(fail.gather(1, pos)[..., None], rep, idx.gather(1, rows))
     return idx.scatter(1, rows, new)

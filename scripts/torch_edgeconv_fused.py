@@ -10,9 +10,10 @@ lists and run the script on both in turns (A, B, B, A), with one ``--out``.
 
 The inputs are ``chip_smoke.stage_cases`` (this checkout's), made from one
 seed: B=8, N=7000, k=30 with ``knn_capped`` indices on C=64 normals
-(spread over the whole cloud) and with forward-like ones (the banded kNN of
+(spread over the whole cloud), with forward-like ones (the banded kNN of
 ``make_blocks`` points at band 2048 and of the C=64 normals at band 4096,
-local in x-sorted order), then B=1, N=1001, k = 20, 30, 40. Per input:
+local in x-sorted order) and with the default forward's own stage-3
+indices, then B=1, N=1001, k = 20, 30, 40. Per input:
 
 * the stage and the extrema kernels' outputs are held within 1e-5 of their
   plain versions and written to ``--out``; where a run on another tree
@@ -23,7 +24,15 @@ local in x-sorted order), then B=1, N=1001, k = 20, 30, 40. Per input:
   ``cublas_ms``, cuBLAS FP32 (TF32 off) for the bare (B*N*k, 64) x (64, 64)
   product of the stage: a ceiling, not a yardstick (it neither gathers nor
   reduces); ``bound_ms``, the stage's FP32 bound (2 * B*N*k*64*64
-  operations at 67 TFLOP/s) and ``share``, the bound over ``ms``.
+  operations at 67 TFLOP/s) and ``share``, the bound over ``ms``;
+* at B=8, the indices' sharing: per tile of Q consecutive queries (Q = 16,
+  32, 64, 128) the share of distinct rows among its Q*k (clamped) indices
+  and the tile's row span, mean and median over tiles, and the largest
+  distinct count; and ``extrema_l2_bound_ms``, the extrema's B*N*k
+  gathered rows of 256 bytes at the card's L2 read rate for such a gather,
+  measured in the same run by ``chip_smoke.l2_gather_rate`` (a diagnostic
+  build that reads every (query, neighbour) row from L2, on row-local
+  indices).
 
 Then the default forward (``chip_smoke.py``'s phase 6 model: emb 1024,
 seeded weights, the ``make_blocks`` batch, a guarded dispatch): its
@@ -32,9 +41,11 @@ tree's.
 
 ``--variants`` (a tree whose wrapper has ``launch_geometry``) also times
 the stage kernel at the launch geometries of ``GEOMETRIES`` (warps per
-block, staging buffers per warp, blocks: 0 for the persistent grid), each
-held ``torch.equal`` to the shipped geometry's output. Prints one JSON
-line: the card's ``nvidia-smi`` name and power limit, the root, the cases.
+block, staging buffers per warp, blocks: 0 for the persistent grid), and
+(a tree whose wrapper has ``launch_extrema``) the extrema kernel at the
+grids of ``EXTREMA_GRIDS``, each held ``torch.equal`` to the shipped
+launch's output. Prints one JSON line: the
+card's ``nvidia-smi`` name and power limit, the root, the cases.
 """
 
 from __future__ import annotations
@@ -51,6 +62,27 @@ HERE = Path(__file__).resolve().parents[1]
 # persistent grid, 7000 a block of 8 warps per 8 queries at B=8, N=7000
 GEOMETRIES = [(8, 1, 0), (8, 2, 0), (12, 1, 0), (12, 2, 0), (4, 2, 0), (6, 2, 0),
               (8, 2, 7000)]
+# --variants: blocks of the extrema kernel (0: one an SM), each a
+# contiguous range of queries
+EXTREMA_GRIDS = [0, 264, 66]
+SHARING_Q = (16, 32, 64, 128)
+
+
+def sharing(idx, n: int, q: int) -> dict:
+    """Distinct rows among each tile of ``q`` consecutive queries' clamped
+    indices (tiles within one cloud), and the tile's row span."""
+    import torch
+
+    b, _, k = idx.shape
+    t = idx.clamp(0, n - 1)[:, : n // q * q].reshape(b, n // q, q * k)
+    srt = t.sort(-1).values
+    distinct = 1 + (srt[..., 1:] != srt[..., :-1]).sum(-1)
+    span = (srt[..., -1] - srt[..., 0] + 1).float()
+    share = distinct.float() / (q * k)
+    return {"distinct_share_mean": share.mean().item(),
+            "distinct_share_median": share.median().item(),
+            "distinct_max": int(distinct.max()),
+            "span_median": span.median().item(), "span_mean": span.mean().item()}
 
 
 def main(argv=None) -> int:
@@ -101,7 +133,12 @@ def main(argv=None) -> int:
         return other["root"]
 
     cases = {}
-    for name, case in cs.stage_cases(dev).items():
+    # the L2 ceiling: a diagnostic build of this tree's extrema kernel
+    new_extrema = hasattr(mod, "launch_extrema")
+    diag = cs.start_l2_diag(HERE / "build" / "torch_edgeconv_fused") if new_extrema else None
+    inputs = cs.stage_cases(dev)
+    l2 = cs.l2_gather_rate(diag, inputs["capped C=64"]["table"], cs.K) if new_extrema else None
+    for name, case in inputs.items():
         st, ex = cs.stage_args(case), cs.extrema_args(case)
         got, got_ex = mod.edgeconv_fused_stage(*st), mod.edgeconv_fused_extrema(*ex)
         torch.cuda.synchronize()
@@ -121,7 +158,20 @@ def main(argv=None) -> int:
                 "cublas_ms": cs.cuda_ms_many(lambda: torch.mm(e, case["w2"]), 10, 5),
                 "bound_ms": b_ms})
             row["share"] = b_ms / row["ms"]
+            row["extrema_l2_bound_ms"] = l2 and l2["ms"]
+            row["sharing"] = {q: sharing(case["idx"], n, q) for q in SHARING_Q}
             del e
+            if args.variants and new_extrema:
+                vec = [case[key] for key in ("gamma", "s5", "t5")]
+                t, i, bv = (case[key] for key in ("table", "idx", "bvec"))
+                var = {}
+                for grid in EXTREMA_GRIDS:
+                    def run_ex(grid=grid):
+                        return mod.launch_extrema(t, i, bv, vec, grid)
+                    if not torch.equal(run_ex(), got_ex):
+                        raise AssertionError(f"{name}: extrema grid {grid} changes the outputs")
+                    var[f"grid={grid}"] = cs.cuda_ms_many(run_ex)
+                row["extrema_variants"] = var
             if args.variants and hasattr(mod, "launch_geometry"):
                 vec = [case[key] for key in ("sa", "ta", "sb", "tb")]
                 t, i, bv, w2 = (case[key] for key in ("table", "idx", "bvec", "w2"))
@@ -137,7 +187,8 @@ def main(argv=None) -> int:
         cases[name] = row
         print(f"{args.label or root} {name}: " + ", ".join(
             f"{key} {v:.4f}" if isinstance(v, float) else f"{key} {v}"
-            for key, v in row.items()), file=sys.stderr)
+            for key, v in row.items() if key not in ("sharing", "extrema_variants")),
+              file=sys.stderr)
 
     from dgcnn_tpu_torch.models.dgcnn import DGCNN, DGCNNConfig, init_dgcnn
 
@@ -148,7 +199,8 @@ def main(argv=None) -> int:
     with torch.inference_mode():
         prob = torch.softmax(model.to(dev)(x, band_mode=1), -1)
     cases["forward"] = {"equal_to": hold("forward prob", {"prob": prob})}
-    print(json.dumps({"label": args.label, "root": root, "device": smi, "cases": cases}))
+    print(json.dumps({"label": args.label, "root": root, "device": smi, "l2_gather": l2,
+                      "cases": cases}))
     return 0
 
 

@@ -16,6 +16,7 @@ from dgcnn_tpu_torch.kernels.edgeconv_fused import (
     edgeconv_fused_stage,
     edgeconv_fused_stage_plain,
     fold_bn,
+    launch_extrema,
     launch_stage,
 )
 from dgcnn_tpu_torch.kernels.knn_banded import (
@@ -33,6 +34,7 @@ from dgcnn_tpu_torch.kernels.knn_capped import (
 )
 from dgcnn_tpu_torch.kernels.knn_capped import launch_kernel as knn_capped_launch
 from dgcnn_tpu_torch.kernels.knn_exact import knn_exact, knn_exact_plain
+from dgcnn_tpu_torch.kernels.knn_exact import launch_kernel as knn_exact_launch
 from dgcnn_tpu_torch.kernels.knn_exact_banded import (
     knn_exact_banded,
     knn_exact_banded_raw,
@@ -208,6 +210,73 @@ def test_exact_kernel_equals_plain_on_integer_inputs(dev, m):
     q = None if m is None else _on(dev, rng.integers(0, 16, (2, m, 4)).astype(np.float32))[0]
     for k in (30, 40):  # one and two register slots per lane
         assert torch.equal(knn_exact(x, k, queries=q), knn_exact_plain(x, k, queries=q))
+
+
+# (b, n, m, k): the repair's shape, a self-kNN (m None), one chunk, ragged
+# n, k over one lane slot, k = 1 and k = 64
+EXACT_CASES = [(8, 7000, 256, 30), (1, 4500, None, 30), (2, 20, 7, 5), (1, 1001, 300, 40),
+               (3, 777, 50, 64), (2, 129, 129, 1)]
+
+
+def _exact_prepared(x, q):
+    cn = (x * x).sum(-1).contiguous()
+    return torch.nn.functional.pad(x, (0, 4 - x.shape[-1])).contiguous(), \
+        torch.nn.functional.pad(q, (0, 4 - q.shape[-1])).contiguous(), cn
+
+
+@pytest.mark.parametrize("b, n, m, k", EXACT_CASES)
+def test_exact_kernel_slices_and_hints_equal_plain_on_integers(dev, b, n, m, k):
+    """Every split (1, 2, 4, 8 warps a query) with and without the row
+    hint, on integers in [0, 16) (ties everywhere): the plain version's
+    indices, bit for bit; the wrapper's own geometry too."""
+    rng = np.random.default_rng(n + k)
+    x, = _on(dev, np.sort(rng.integers(0, 16, (b, n, 3)).astype(np.float32), axis=1))
+    rows = (torch.arange(n, device=dev).expand(b, n) if m is None else
+            torch.from_numpy(rng.integers(0, n, (b, m))).to(dev))
+    q = x if m is None else x.gather(1, rows[..., None].expand(-1, -1, 3)).contiguous()
+    want = knn_exact_plain(x, k, queries=None if m is None else q)
+    xp, qp, cn = _exact_prepared(x, q)
+    for slices in (1, 2, 4, 8):
+        for hint in (None, rows):
+            got = knn_exact_launch(xp, qp, cn, k, rows=hint, slices=slices)
+            assert torch.equal(got, want), (slices, hint is not None)
+    got = knn_exact(x, k, queries=None if m is None else q, query_rows=rows)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("data", ["blocks", "offset", "features"])
+def test_exact_kernel_slices_and_hints_agree_bit_for_bit_on_floats(dev, data):
+    """On floats every split (C=4) and hint gives the same indices bit for
+    bit (the same scores, a total order). At C=4 (the cloud kernel, pruning
+    where channel 0 is sorted: x-sorted blocks, and the same blocks moved
+    to x ~ 10^4 where the scores round coarsely) they are also those of
+    the kernel that reads rows from L2 and walks every row: the same
+    points with 12 zero channels (the same FMA chain) and the same norms,
+    for these queries and for the self-kNN."""
+    rng = np.random.default_rng(len(data))
+    if data == "features":
+        pts = rng.standard_normal((2, 3000, 64)).astype(np.float32)
+    else:
+        pts = sorted_blocks(2, 3000, seed=3)
+        if data == "offset":
+            pts[..., 0] += 1e4
+    x, = _on(dev, pts)
+    c = x.shape[-1]
+    rows = torch.from_numpy(rng.integers(0, 3000, (2, 256))).to(dev)
+    q = x.gather(1, rows[..., None].expand(-1, -1, c)).contiguous()
+    cn = (x * x).sum(-1).contiguous()
+    want = knn_exact_launch(x, q, cn, 30)
+    for slices in (1, 2, 4, 8) if c == 4 else (1,):  # C=64: a warp a query
+        for hint in (None, rows, rows.flip(1)):
+            assert torch.equal(knn_exact_launch(x, q, cn, 30, rows=hint, slices=slices), want)
+    assert torch.equal(knn_exact(x, 30, queries=q, query_rows=rows), want)
+    if c == 64:
+        with pytest.raises(RuntimeError, match="knn_exact"):
+            knn_exact_launch(x, q, cn, 30, slices=2)
+    if c == 4:  # the same norms: (x * x).sum(-1) of the 4 channels
+        x16, q16 = (torch.nn.functional.pad(t, (0, 12)).contiguous() for t in (x, q))
+        assert torch.equal(knn_exact_launch(x16, q16, cn, 30), want)
+        assert torch.equal(knn_exact_launch(x16, x16, cn, 30), knn_exact_launch(x, x, cn, 30))
 
 
 def test_predicates_skip_the_kernels(dev):
@@ -467,6 +536,27 @@ def test_fused_extrema_kernel_equals_plain(dev):
     got = edgeconv_fused_extrema(table, idx, bvec, gamma, s, t)
     want = edgeconv_fused_extrema_plain(table, idx, bvec, gamma, s, t)
     torch.testing.assert_close(got, want, atol=0, rtol=0)  # no sums: exact
+
+
+@pytest.mark.parametrize("b, n, k", [(2, 1200, 30), (1, 1001, 20), (1, 1001, 70), (3, 77, 1)])
+def test_fused_extrema_kernel_grids(dev, b, n, k):
+    """Every grid (one block an SM by default; one block walking every
+    query; ranges of unequal length; more blocks than queries) gives the
+    plain version's outputs exactly, on local neighbours with indices
+    outside [0, n) and on spread ones, k over one warp's 32 lanes too."""
+    rng = np.random.default_rng(n + k)
+    table, bvec = _on(dev, *rng.standard_normal((2, b, n, 64)).astype(np.float32))
+    (s, t), = [fold_bn(*_on(dev, v["gamma"], v["beta"], v["mean"], v["var"]))
+               for v in (random_bn(rng, 64),)]
+    gamma = torch.from_numpy(rng.uniform(-1, 1, 64).astype(np.float32)).to(dev)
+    local = np.arange(n)[None, :, None] + rng.integers(-40, 40, (b, n, k))
+    for name, idx in (("local", np.clip(local, -3, n + 2)),
+                      ("spread", rng.integers(-2, n + 2, (b, n, k)))):
+        idx, = _on(dev, idx.astype(np.int32))
+        want = edgeconv_fused_extrema_plain(table, idx, bvec, gamma, s, t)
+        for grid in (0, 1, 3, 7, 264, 100000):
+            got = launch_extrema(table, idx, bvec, [gamma, s, t], grid)
+            assert torch.equal(got, want), (name, grid)
 
 
 def test_default_model_on_cuda_matches_cpu_plain_versions(dev):
