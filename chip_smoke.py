@@ -332,6 +332,134 @@ def forward_capture(dev) -> dict:
     return rec
 
 
+def train_capture(dev) -> dict:
+    """One train step of the production configuration on the card (B=8,
+    N=7000, k=30, emb 1024, dropout 0.5, Adam, the default bands; state from
+    seed 1, ``make_blocks(B, N, seed=0)`` with labels and a 0.7 mask from
+    seed 0, an unguarded dispatch), with what its backward hands
+    ``scatter_stage_tail_rows`` recorded: stage 3's ``(u, w, am, idx)``."""
+    import torch
+
+    from dgcnn_tpu_torch.models.dgcnn import DGCNNConfig
+    from dgcnn_tpu_torch.ops import edgeconv
+    from dgcnn_tpu_torch.train.steps import init_train_state, make_train_step
+
+    rec = {}
+    real = edgeconv.scatter_stage_tail_rows
+
+    def tail(u, w, am, idx, **kw):
+        rec.update(u=u.clone(), w=w.clone(), am=am.clone(), idx=idx.clone())
+        return real(u, w, am, idx, **kw)
+
+    cfg = DGCNNConfig(k=K, emb_dims=1024)
+    state = init_train_state(cfg, seed=1, device=str(dev), epochs=30)
+    step = make_train_step(cfg, band_guard=True)
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(make_blocks(B, N, seed=0)).to(dev)
+    labels = torch.from_numpy(rng.integers(0, 5, (B, N))).to(dev)
+    mask = torch.from_numpy((rng.random((B, N)) < 0.7).astype(np.float32)).to(dev)
+    edgeconv.scatter_stage_tail_rows = tail
+    try:
+        float(step(state, x, labels, mask, 0)["loss"])
+    finally:
+        edgeconv.scatter_stage_tail_rows = real
+    if set(rec) != {"u", "w", "am", "idx"}:
+        raise AssertionError("train_capture: the train step did not reach the stage-3 tail")
+    return rec
+
+
+def tail_close(got, want, u, w, am, idx) -> float:
+    """Hold the tail scatter's ``(sums, count)`` against the plain
+    version's: the count exact; each sum within 1e-5 (absolute and
+    relative) or, on a row that takes many entries (a clamped row 0 or
+    N-1, a hub of a feature-space kNN), within twice the recursive-
+    summation bound (hits - 1) * 2^-24 * sum |term| of each of the two
+    sums, which add the same terms in different (atomic) orders. Returns
+    the largest difference."""
+    import torch
+
+    from dgcnn_tpu_torch.kernels.scatter_rows import scatter_stage_tail_rows_plain
+
+    torch.cuda.synchronize()
+    if not torch.equal(got[1], want[1]):
+        raise AssertionError("scatter_stage_tail_rows: the count differs from the plain version's")
+    mag = scatter_stage_tail_rows_plain(u.abs(), w.abs(), am, idx)[0]
+    err = (got[0] - want[0]).abs()
+    ok = torch.maximum(1e-5 + 1e-5 * want[0].abs(), 2 * want[1][..., None] * 2.0 ** -24 * mag)
+    if not (err <= ok).all():
+        raise AssertionError(f"scatter_stage_tail_rows: sums differ by up to "
+                             f"{err.max().item():.3e}")
+    return err.max().item()
+
+
+def tail_bound(b: int, n: int, k: int, c: int) -> tuple[float, str]:
+    """Bound of the stage-3 tail scatter: u and w (FP32), am (int8) and the
+    indices read once, the sums and the count written once; one add per
+    (entry, channel) and one select, 2 operations."""
+    return bound(4.0 * (2 * b * n * c + b * n * k + b * n * c + b * n) + b * n * c,
+                 2.0 * b * n * k * c)
+
+
+# A diagnostic build of the row scatter kernel (scripts/kernel_variants.py)
+# whose rows cycle over the first 256 rows of a small dy (L1 / L2
+# resident), so that its time is the reductions': into the L2-resident
+# (B, N, 64) output at the given indices, by float4 vector reductions or
+# (the output one float off 16-byte alignment) scalar ones, neighbouring
+# lanes on neighbouring channels.
+DIAG_REDUCTION_RATE = [
+    ("    const T* db = dy + (size_t)b * M * g;", "    const T* db = dy;"),
+    ("        v[r] = __ldcs(db + s);", "        v[r] = __ldg(db + s % (256 * g));")]
+
+
+def start_reduction_diag(out_dir):
+    """Start building :data:`DIAG_REDUCTION_RATE` (in the background);
+    :func:`global_reduction_rate` finishes it."""
+    from pathlib import Path
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts"))
+    import kernel_variants as kv
+
+    return kv.start_build("diag_reduction_rate", DIAG_REDUCTION_RATE, Path(out_dir),
+                          ("scatter_rows.cu",), ("scatter_rows.cu",))
+
+
+def global_reduction_rate(started, idx, c: int = 64) -> dict:
+    """The card's global reduction rate on the (B, N, k) indices ``idx``
+    (the train step's stage 3): B*N*k rows of ``c`` FP32 adds into an
+    L2-resident (B, N, c) output, by float4 vector reductions and by
+    scalar ones, from the diagnostic build (:func:`start_reduction_diag`),
+    50 launches per event pair (:func:`cuda_ms_many`). Reductions per
+    second count one per float4 or per float; bytes per second the FP32
+    payload added."""
+    import ctypes
+
+    import torch
+
+    import kernel_variants as kv
+
+    lib, _ = kv.finish_build("diag_reduction_rate", *started)
+    b, n, k = idx.shape
+    flat = idx.reshape(b, n * k).contiguous()
+    dy = torch.randn((256, c), device=idx.device)
+    res = {}
+    for label, shift in (("float4", 0), ("scalar", 1)):
+        buf = torch.zeros(b * n * c + shift, device=idx.device)
+        out = buf[shift:]
+
+        def run():
+            err = lib.dgcnn_scatter_add_rows(
+                dy.data_ptr(), flat.data_ptr(), out.data_ptr(), None, b, n * k, n, c,
+                ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+            if err:
+                raise RuntimeError(f"diag_reduction_rate ({label}): CUDA error {err}")
+
+        ms = cuda_ms_many(run)
+        reds = b * n * k * (c // 4 if label == "float4" else c)
+        res[label] = {"ms": ms, "reductions_per_s": reds / ms * 1e3,
+                      "bytes_per_s": 4.0 * b * n * k * c / ms * 1e3}
+    return res
+
+
 # A diagnostic build of the extrema kernel (scripts/kernel_variants.py)
 # that reads every (query, neighbour) row from L2 (ld.global.cg, past L1),
 # its warps striding over all queries (no range an SM shares in L1). On
@@ -551,6 +679,8 @@ def phase_kernels():
     from dgcnn_tpu_torch.kernels.knn_packed import knn_packed, knn_packed_plain
 
     dev = torch.device("cuda")
+    red_diag = start_reduction_diag(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                                 "build", "chip_smoke"))
     rng = np.random.default_rng(0)
     res = {"knn_capped": [], "knn_banded": [], "knn_exact": [], "knn_exact_banded": [],
            "knn_packed": []}
@@ -675,7 +805,8 @@ def phase_kernels():
     if knn_packed.launches == before:
         raise AssertionError("knn_capped's small-input fallback did not launch knn_packed")
 
-    return res, phase_fused(dev), phase_scatter(pts), phase_gather(pts), phase_split(pts)
+    return (res, phase_fused(dev), phase_scatter(pts, red_diag), phase_gather(pts),
+            phase_split(pts))
 
 
 def stage_cases(dev) -> dict:
@@ -795,24 +926,33 @@ def phase_fused(dev) -> list:
     return records
 
 
-def phase_scatter(pts):
+def phase_scatter(pts, red_diag):
     """The training backward's scatter kernels against their plain
     versions at the train step's shapes: stage 2's gather VJP (C=64,
     210 000 rows per cloud) and stage 3's tail (C=64), plus the C=4 width
     of a stage-1 gather VJP (the train step skips that one: the input
     points need no gradient), with the kNN indices of ``make_blocks``
-    batches and uniform random ones; then the row scatter on a ragged case
+    batches and uniform random ones; the tail also on what one seeded
+    production train step hands it (:func:`train_capture`), where the
+    card's global reduction rate is measured too
+    (:func:`global_reduction_rate`). Then the row scatter on a ragged case
     (N=1001, M=12345, C in 1 / 3 / 4 / 8 / 64 / 68 / 128) with indices
-    outside [0, N), which clamp. The sums are atomic, so their order
-    changes from run to run: 1e-5 absolute and relative. Times: kernel,
-    plain version and ``index_add_`` by :func:`cuda_ms_many`, each with
-    the zeroing of its output."""
+    outside [0, N), which clamp, and the tail on ragged cases (B=1, N=1001,
+    k=20, the same widths: tiles of 7 queries) and past the tile route
+    (B=1, N=60 000: the global route), with a False predicate leaving
+    zeros. The sums are atomic, so their order changes from run to run: 1e-5
+    absolute and relative (the tail's ragged cases, whose clamped rows 0
+    and N-1 take ~8x the entries: 1e-5 or, on such rows, twice the
+    recursive-summation bound, :func:`tail_close`); the count exact. Times:
+    kernel, plain
+    version and ``index_add_`` by :func:`cuda_ms_many`, each with the
+    zeroing of its output where it needs one."""
     import torch
 
     from dgcnn_tpu_torch.kernels.knn_capped import knn_capped
     from dgcnn_tpu_torch.kernels.scatter_rows import (
         scatter_add_rows, scatter_add_rows_plain, scatter_stage_tail_rows,
-        scatter_stage_tail_rows_plain)
+        scatter_stage_tail_rows_plain, tail_plan)
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(7)
@@ -820,6 +960,34 @@ def phase_scatter(pts):
                "uniform": torch.randint(0, N, (B, N, K), generator=g, device=dev,
                                         dtype=torch.int32)}
     rows = {"scatter_add_rows": [], "scatter_stage_tail_rows": []}
+
+    def tail_case(label, u, w, am, idx, reps=50):
+        sums, count = scatter_stage_tail_rows(u, w, am, idx)
+        want_sums, want_count = scatter_stage_tail_rows_plain(u, w, am, idx)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(sums, want_sums, atol=1e-5, rtol=1e-5)
+        torch.testing.assert_close(count, want_count, atol=0, rtol=0)
+        err = (sums - want_sums).abs().max().item()
+        ms = cuda_ms_many(lambda: scatter_stage_tail_rows(u, w, am, idx), reps)
+        plain_ms = cuda_ms_many(lambda: scatter_stage_tail_rows_plain(u, w, am, idx), 5, 5)
+        b_, n_, c_ = u.shape
+        b_ms, b_by = tail_bound(b_, n_, idx.shape[-1], c_)
+        qt = tail_plan(b_, n_, idx.shape[-1], c_)
+        log(f"scatter_stage_tail_rows ({label}): max abs diff {err:.3e}, kernel {ms:.4f} ms "
+            f"({qt} queries a tile), plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms")
+        rows["scatter_stage_tail_rows"].append({
+            "case": label, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": None, "bound_ms": b_ms, "bound_by": b_by, "queries_a_tile": qt})
+
+    cap = train_capture(dev)
+    tail_case("C=64 stage 3 (the train step's own inputs)", cap["u"], cap["w"], cap["am"],
+              cap["idx"])
+    rate = global_reduction_rate(red_diag, cap["idx"])
+    rows["global_reduction_rate"] = rate
+    log("global reductions on the train step's stage-3 indices into a (B, N, 64) output: "
+        + ", ".join(f"{k_} {v['ms']:.4f} ms, {v['reductions_per_s'] / 1e9:.1f} G/s, "
+                    f"{v['bytes_per_s'] / 1e12:.2f} TB/s" for k_, v in rate.items()))
+    del cap
     for label, idx in indices.items():
         flat_idx = idx.reshape(B, N * K)
         for c in (4, 64):
@@ -837,21 +1005,7 @@ def phase_scatter(pts):
         u = torch.randn((B, N, 64), generator=g, device=dev)
         w = torch.randn((B, N, 64), generator=g, device=dev)
         am = torch.randint(0, K, (B, N, 64), generator=g, device=dev).to(torch.int8)
-        sums, count = scatter_stage_tail_rows(u, w, am, idx)
-        want_sums, want_count = scatter_stage_tail_rows_plain(u, w, am, idx)
-        torch.cuda.synchronize()
-        torch.testing.assert_close(sums, want_sums, atol=1e-5, rtol=1e-5)
-        torch.testing.assert_close(count, want_count, atol=0, rtol=0)
-        err = (sums - want_sums).abs().max().item()
-        ms = cuda_ms_many(lambda: scatter_stage_tail_rows(u, w, am, idx))
-        plain_ms = cuda_ms_many(lambda: scatter_stage_tail_rows_plain(u, w, am, idx), 5, 5)
-        b_ms, b_by = bound(4.0 * (2 * B * N * 64 + B * N * K + B * N * 64 + B * N)
-                           + B * N * 64, 2.0 * B * N * K * 64)
-        log(f"scatter_stage_tail_rows ({label}): max abs diff {err:.3e}, kernel {ms:.3f} ms, "
-            f"plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms")
-        rows["scatter_stage_tail_rows"].append({
-            "case": f"C=64 {label}", "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "library_ms": None, "bound_ms": b_ms, "bound_by": b_by})
+        tail_case(f"C=64 {label}", u, w, am, idx)
     n, m = 1001, 12345
     idx = torch.randint(-7, n + 7, (3, m), generator=g, device=dev, dtype=torch.int32)
     for c in (1, 3, 4, 8, 64, 68, 128):
@@ -862,6 +1016,21 @@ def phase_scatter(pts):
                                    rtol=1e-5)
     log(f"scatter_add_rows ragged (B=3, N={n}, M={m}, C=1/3/4/8/64/68/128, indices in "
         "[-7, N+7)): within 1e-5, clamped")
+    no = torch.zeros((), dtype=torch.bool, device=dev)
+    for b_, n_, k_, widths in ((1, n, 20, (1, 3, 4, 64, 128)), (1, 60000, K, (64,))):
+        idx = torch.randint(-7, n_ + 7, (b_, n_, k_), generator=g, device=dev,
+                            dtype=torch.int32)
+        for c in widths:
+            u, w = (torch.randn((b_, n_, c), generator=g, device=dev) for _ in range(2))
+            am = torch.randint(-1, k_, (b_, n_, c), generator=g, device=dev).to(torch.int8)
+            tail_close(scatter_stage_tail_rows(u, w, am, idx),
+                       scatter_stage_tail_rows_plain(u, w, am, idx), u, w, am, idx)
+            if any(t.any() for t in scatter_stage_tail_rows(u, w, am, idx, pred=no)):
+                raise AssertionError(f"scatter_stage_tail_rows N={n_} C={c}: a False "
+                                     "predicate left non-zeros")
+        log(f"scatter_stage_tail_rows ragged (B={b_}, N={n_}, k={k_}, C="
+            f"{'/'.join(map(str, widths))}, indices in [-7, N+7); {tail_plan(b_, n_, k_, widths[-1])} "
+            "queries a tile): within 1e-5, count exact, clamped; a False predicate: zeros")
     return rows
 
 
@@ -911,27 +1080,36 @@ def phase_gather(pts):
     return rows
 
 
-def phase_split(pts):
-    """The split packed kNN (``knn_packed(..., splits=s)``) against its
-    plain version at B=8, N=7000, k=30, C=4 and C=64, splits 2 and 8,
-    self and 1000 ``queries=``. Integer inputs: bit for bit; where every
-    distance fits the flat kernel's 18-bit keys (C=4 in [0, 8), C=64 in
-    [0, 2)) also equal to the flat packed kernel; on ints in [0, 16) the
-    two select differently on some rows (logged). Float inputs: bit for
-    bit across splits (the slicing does not change the result), against
-    the plain version within the packed keys' tolerance (the kernel's
-    ``fmaf`` chain and cuBLAS sum in other orders, so equal bits are not
-    guaranteed there), the rows unlike the plain version's and the flat
-    kernel's counted and logged. Then the wrapper's routing by launch
-    counts: ``splits=3`` (7040 % 3 != 0) and N=9000 with ``splits=2``
-    (n_pad 9088 > 8192) take the flat kernel."""
+# SHA-256 (first 16 hex digits) of the indices the first split kernel
+# (per-slice register lists, then a merge kernel, the design before this one)
+# returned on each input of :func:`split_inputs` at splits 2, recorded on an
+# H100 by ``scripts/torch_knn_packed.py --split_digests`` on that tree:
+# the redesigned kernel must return them bit for bit, floats included.
+SPLIT_DIGESTS = {
+    "int C=4 in [0, 8) self": "21be071b622d6509",
+    "int C=4 in [0, 8) 1000 queries": "2ef17931fcc69c12",
+    "int C=4 in [0, 16) self": "18460242c5d59d1b",
+    "int C=4 in [0, 16) 1000 queries": "82dcd2648940a3c3",
+    "int C=64 in [0, 2) self": "a2ce4daa3c7f5e9b",
+    "int C=64 in [0, 2) 1000 queries": "b3fe1f7fbbe8782b",
+    "int C=64 in [0, 16) self": "61202e85bb95670f",
+    "int C=64 in [0, 16) 1000 queries": "c0e094e6f23be158",
+    "float C=4 (blocks) self": "0839da88c87bc8df",
+    "float C=4 (blocks) 1000 queries": "b319eabb66c9b71c",
+    "float C=64 self": "f7eebdf82f78125d",
+    "float C=64 1000 queries": "76b10ddd548acfc2",
+}
+
+
+def split_inputs(pts) -> list:
+    """The split kNN's inputs, from seeds: (name, x, integer-valued, whether
+    every distance fits the flat kernel's 18-bit keys, 1000 query rows of
+    x): integers in [0, 8) and [0, 16) at C=4, [0, 2) and [0, 16) at C=64,
+    the ``make_blocks`` points and normal C=64 features."""
     import torch
 
-    from dgcnn_tpu_torch.kernels.knn_packed import knn_packed, knn_packed_split_plain
-
-    dev = torch.device("cuda")
+    dev = pts.device
     rng = np.random.default_rng(15)
-    rows = []
 
     def ints(hi, c):
         return torch.from_numpy(rng.integers(0, hi, (B, N, c)).astype(np.float32)).to(dev)
@@ -940,8 +1118,38 @@ def phase_split(pts):
     cases = [(f"int C={c} in [0, {hi})", ints(hi, c), True, hi <= (8 if c == 4 else 2))
              for c in (4, 64) for hi in ((8, 16) if c == 4 else (2, 16))]
     cases += [("float C=4 (blocks)", pts, False, False), ("float C=64", feats, False, False)]
-    for name, x, int_valued, fits in cases:
-        q = x[:, torch.randperm(N, device=dev)[:1000]]
+    rows = torch.from_numpy(rng.permutation(N)[:1000]).to(dev)
+    return [(name, x, int_valued, fits, x[:, rows].contiguous())
+            for name, x, int_valued, fits in cases]
+
+
+def digest(t) -> str:
+    import hashlib
+
+    return hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()[:16]
+
+
+def phase_split(pts):
+    """The split packed kNN (``knn_packed(..., splits=s)``) at B=8, N=7000,
+    k=30, C=4 and C=64, splits 2 and 8, self and 1000 ``queries=``
+    (:func:`split_inputs`): bit for bit equal to what the first split
+    kernel returned (:data:`SPLIT_DIGESTS`), floats included, and across
+    splits; on integers to its plain version too; where every distance fits
+    the flat kernel's 18-bit keys (C=4 in [0, 8), C=64 in [0, 2)) also equal
+    to the flat packed kernel; on ints in [0, 16) the two select
+    differently on some rows (logged). Float inputs: against the plain
+    version within the packed keys' tolerance (the kernel's ``fmaf`` chain
+    and cuBLAS sum in other orders, so equal bits are not guaranteed
+    there), the rows unlike the plain version's and the flat kernel's
+    counted and logged. The self cases of three inputs are timed through
+    the wrapper (:func:`cuda_ms_many`), the flat kernel on the same input
+    beside them."""
+    import torch
+
+    from dgcnn_tpu_torch.kernels.knn_packed import knn_packed, knn_packed_split_plain
+
+    rows = []
+    for name, x, int_valued, fits, q in split_inputs(pts):
         for queries in (None, q):
             tag = "self" if queries is None else "1000 queries"
             flat = knn_packed(x, K, queries=queries)
@@ -962,16 +1170,24 @@ def phase_split(pts):
                        "rows_unlike_plain": diff_plain, "rows_unlike_flat": diff_flat}
                 if queries is None and name in ("int C=4 in [0, 16)", "float C=4 (blocks)",
                                                 "float C=64"):
-                    row["ms"] = cuda_ms(lambda s=s: knn_packed(x, K, splits=s), 10)
+                    row["ms"] = cuda_ms_many(lambda s=s: knn_packed(x, K, splits=s), 10, 5)
+                    row["flat_ms"] = cuda_ms_many(lambda: knn_packed(x, K), 10, 5)
                     row["plain_ms"] = cuda_ms(lambda: knn_packed_split_plain(x, K), 2)
                 log(f"knn_packed_split {name} {tag} splits {s}: agreement {agree:.6f}, max "
                     f"|d2 diff| {err:.3e}, of {flat.shape[0] * flat.shape[1]} rows "
                     f"{diff_plain} unlike the plain version, {diff_flat} unlike the flat "
-                    f"kernel; kernel {row.get('ms', float('nan')):.3f} ms, plain "
+                    f"kernel; kernel {row.get('ms', float('nan')):.4f} ms, flat "
+                    f"{row.get('flat_ms', float('nan')):.4f} ms, plain "
                     f"{row.get('plain_ms', float('nan')):.3f} ms")
                 rows.append(row)
             if not torch.equal(outs[2], outs[8]):
                 raise AssertionError(f"knn_packed_split {name} {tag}: splits 2 != splits 8")
+            held = SPLIT_DIGESTS.get(f"{name} {tag}")
+            if held is None or digest(outs[2]) != held:
+                raise AssertionError(f"knn_packed_split {name} {tag}: indices {digest(outs[2])}"
+                                     f", the first split kernel's {held}")
+    log(f"knn_packed_split: every input's indices equal to the first split kernel's "
+        f"({len(SPLIT_DIGESTS)} digests)")
     return rows
 
 
@@ -1846,17 +2062,24 @@ def main() -> int:
     def c4_case(cases):  # the row kernels' C=4 width beside the C=64 one
         return {"c4": {k_: pick(cases, "C=4 kNN of blocks")[k_] for k_ in timing}}
 
-    for name, tpu in (("scatter_add_rows", "scatter_pallas.py:25"),
-                      ("scatter_stage_tail_rows", "scatter_pallas.py:78")):
-        timed = pick(scatter[name], "C=64 kNN of blocks")
+    # the tail kernel on the train step's own stage-3 inputs, beside it the
+    # kNN-of-blocks case and the card's global reduction rate
+    for name, tpu, case in (
+            ("scatter_add_rows", "scatter_pallas.py:25", "C=64 kNN of blocks"),
+            ("scatter_stage_tail_rows", "scatter_pallas.py:78",
+             "C=64 stage 3 (the train step's own inputs)")):
+        timed = pick(scatter[name], case)
+        extra = c4_case(scatter[name]) if name == "scatter_add_rows" else {
+            "knn_of_blocks": {k_: pick(scatter[name], "C=64 kNN of blocks")[k_]
+                              for k_ in timing},
+            "global_reduction_rate": scatter["global_reduction_rate"]}
         kernels.append({
             "name": name, "route": "cuda",
             "source": "dgcnn_tpu_torch/kernels/csrc/scatter_rows.cu",
             "replaces": f"dgcnn_tpu/kernels/{tpu}",
             "launches": trained["launches"][name],
             "max_abs_err": max(r["max_abs_err"] for r in scatter[name]),
-            **{k_: timed[k_] for k_ in timing},
-            **(c4_case(scatter[name]) if name == "scatter_add_rows" else {})})
+            **{k_: timed[k_] for k_ in timing}, **extra})
     # the gather kernel on the train path (its launches in phase 7's
     # train() run, 3 per step); the split kNN on
     # Path B, knn_packed(..., splits=s), at C=64 with 8 splits (the same
@@ -1877,7 +2100,7 @@ def main() -> int:
         "launches": split_launches["knn_packed_split"],
         "max_abs_err": max(r["max_abs_err"] for r in split),
         "ms": timed["ms"], "plain_ms": timed["plain_ms"], "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": None})
+        "library_ms": None, "flat_ms": timed["flat_ms"]})
     for row in kernels:  # the share of its bound each kernel (and case) reaches
         row["bound_share"] = row["bound_ms"] / row["ms"]
         for case in row.values():

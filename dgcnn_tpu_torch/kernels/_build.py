@@ -43,14 +43,14 @@ SIGNATURES = {
                                _I, _I, _I, _I, _I, _P),
     "dgcnn_knn_packed": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                          _I, _P),
-    "dgcnn_knn_packed_split": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                               _I, _I, _P),
+    "dgcnn_knn_packed_split": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                               _I, _P),
     "dgcnn_gather_rows": (_P, _P, _P, _I, _I, _I, _I, _P),
     "dgcnn_edgeconv_stage": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                              _I, _I, _I, _P),
     "dgcnn_edgeconv_extrema": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "dgcnn_scatter_add_rows": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
-    "dgcnn_scatter_stage_tail": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "dgcnn_scatter_stage_tail": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
 }
 
 _lib: ctypes.CDLL | None = None

@@ -70,7 +70,7 @@
 // Resources (nvcc -Xptxas -v, sm_90a, CUDA 12.8; the build log beside the
 // library): the two-phase KMAX-32 C=64 instance 240 registers, no spill,
 // 155,648 bytes of shared memory, one block of 8 warps per SM; the fused
-// KMAX-32 C=4 instance 80 registers,
+// KMAX-32 C=4 instances 76-80 registers (bounded to three blocks an SM),
 // 10,240 bytes. No instance spills. `cuobjdump -sass`: FFMA, no HMMA or
 // GMMA, in every instance.
 //
@@ -86,19 +86,17 @@
 //
 // so it keeps 19 bits of score where the flat kernel keeps 18, and the two
 // select differently wherever two distances agree in 18 bits but not in
-// 19. The candidate rows are cut into `splits` contiguous slices [s*w,
-// (s+1)*w), w = n_pad / splits; each slice keeps its own top-k (blockIdx.z
-// is the slice: a block owns 32 queries, one per lane, and its 8 warps
-// scan 8 interleaved sub-slices of the slice's rows, staged in shared
-// memory and read as broadcasts, each lane keeping a sorted top-KMAX
-// register list; one warp per query then takes the k largest of the 8
-// lists), its k largest keys written to a (B, M, splits, K) scratch (a
-// slice with fewer than k real rows pads with INT_MIN, which never wins
-// while N >= k); then knn_split_merge_kernel takes the k largest of the
-// splits*K winners, warp per query, and decodes n_pad - 1 - (key &
-// 0x1FFF). Keys are unique, so the result is the top-k of the split keys
-// whatever the slicing: the slices shape the work, not the answer. Same
-// bound as the flat kernel (the scratch is (B, M, splits, K) int32 on top).
+// 19. The TPU kernel cuts the candidate rows into `splits` slices, keeps
+// each slice's top-k and merges them; the keys are unique, so its result
+// is the top-k of the split keys over all N rows whatever the slicing, and
+// the split kernel here is the flat kernel's bodies (the two-phase one at
+// C >= 16, the fused one at C <= 8) on the split key: the template
+// parameter SHIFT (1: the flat key, 0: the split key) picks the key, and
+// the fused kernel's score_bound is derived for each (below). `splits`
+// shapes no work: 64-query blocks fill the card at every shape the port
+// runs (B=8: 128 blocks at 1000 queries). Bit-equal to the first split
+// kernel (per-slice register lists, then a merge kernel over a
+// (B, M, splits, K) scratch) on every input, floats included.
 
 #include <cuda_runtime.h>
 #include <climits>
@@ -144,6 +142,14 @@ __device__ __forceinline__ void stage_tile(float4* dst, float* dn, const float* 
   cp_async_commit();
 }
 
+// The packed key of a score: ((monotone_int(score) >> SHIFT) & keep_mask) |
+// low; SHIFT 1 is knn_select.cuh's pack_key (the flat kernel), SHIFT 0 the
+// split kernel's key.
+template <int SHIFT>
+__device__ __forceinline__ int key_of(float s, int low, int keep_mask) {
+  return ((score_key(s) >> SHIFT) & keep_mask) | low;
+}
+
 // The i-th tile of the scan from tile t0 outward: t0, t0 + 1, t0 - 1, t0 +
 // 2, ..., then the rest of the longer side, each of the `tiles` once.
 __device__ __forceinline__ int outward(int i, int t0, int tiles) {
@@ -155,7 +161,7 @@ __device__ __forceinline__ int outward(int i, int t0, int tiles) {
 // Phase A of one tile: the 8 x 8 dots of queries ty + TY * a and tile rows
 // tx + TX * c, their packed keys into the key tile [kQB][kKeyStride]. CHECK: the
 // tile holds padding rows (o >= N: INT_MIN, below every real key).
-template <int CV, bool CHECK>
+template <int CV, int SHIFT, bool CHECK>
 __device__ __forceinline__ void tile_keys(const float4* __restrict__ qs4,
                                           const float4* __restrict__ xs4,
                                           const float* __restrict__ xn, const float (&qn)[8],
@@ -171,7 +177,7 @@ __device__ __forceinline__ void tile_keys(const float4* __restrict__ qs4,
     const float xnv = xn[row];
 #pragma unroll
     for (int a = 0; a < 8; ++a) {
-      int v = pack_key(score(acc[a][c], xnv, qn[a]), n_pad - 1 - o, keep_mask);
+      int v = key_of<SHIFT>(score(acc[a][c], xnv, qn[a]), n_pad - 1 - o, keep_mask);
       if (CHECK && o >= N) v = INT_MIN;
       keys[(ty + TY * a) * KS + row] = v;
     }
@@ -251,7 +257,7 @@ __device__ __forceinline__ void write_lists(const int (&lst)[QW][L], int* __rest
 }
 
 // The two-phase kernel (C >= 16): kQB queries a block, 8 a warp.
-template <int KMAX, int CV>
+template <int KMAX, int CV, int SHIFT>
 __global__ void __launch_bounds__(kThreads, 1)
 knn_packed_kernel(const float* __restrict__ x,      // (B, N, CV)
                   const float* __restrict__ q,      // (B, M, CV)
@@ -302,9 +308,9 @@ knn_packed_kernel(const float* __restrict__ x,      // (B, N, CV)
     cp_async_wait<0>();
     __syncthreads();  // the tile has arrived; phase B of the last one is done
     if ((t + 1) * TR > N) {
-      tile_keys<CV, true>(qs4, xs4, xn, qn, keys, ty, tx, t * TR, n_pad, N, keep_mask);
+      tile_keys<CV, SHIFT, true>(qs4, xs4, xn, qn, keys, ty, tx, t * TR, n_pad, N, keep_mask);
     } else {
-      tile_keys<CV, false>(qs4, xs4, xn, qn, keys, ty, tx, t * TR, n_pad, N, keep_mask);
+      tile_keys<CV, SHIFT, false>(qs4, xs4, xn, qn, keys, ty, tx, t * TR, n_pad, N, keep_mask);
     }
     __syncthreads();  // the keys are written; the tile is free
     if (i + 1 < tiles) stage_tile<CV, TR>(xs4, xn, xb, cb, outward(i + 1, t0, tiles), N);
@@ -323,15 +329,21 @@ knn_packed_kernel(const float* __restrict__ x,      // (B, N, CV)
   write_lists<QW, L>(lst, out, b, M, K, q0 + warp * QW, n_pad, (1 << idx_bits) - 1, lane);
 }
 
-// The least score whose packed key's score bits reach those of `kth`:
-// key = ((m >> 1) & keep) | low, m the score's monotone int, so a score
-// whose m is below 2 * (kth & keep) has a key below kth. The float of
-// that m (-inf while the list is not full, or where 2 * (kth & keep) has
-// no float counterpart); a NaN bound rejects nothing.
+// The least score whose packed key's score bits reach those of `kth`, as
+// a float: a score below it has a key below kth, so the fused kernel drops
+// it before making its key (exact: the k-th key so far is at most the
+// final one). key = ((m >> SHIFT) & keep) | low, m the score's monotone
+// int, and hi = kth & keep has its low bits clear, so (m >> SHIFT) & keep
+// < hi exactly where m < hi << SHIFT: the bound is the float whose
+// monotone int is hi << SHIFT. -inf while the list is not full or where hi
+// << SHIFT has no float counterpart; a NaN bound (hi in the NaN range)
+// rejects nothing, and a NaN score passes every bound.
+// kernels/knn_packed.py::score_bound computes the same.
+template <int SHIFT>
 __device__ __forceinline__ float score_bound(int kth, int keep_mask) {
   const int hi = kth & keep_mask;
-  if (kth == INT_MIN || hi <= -0x3fffffff) return -INFINITY;
-  const int m = 2 * hi;
+  if (kth == INT_MIN || hi <= (SHIFT ? -0x3fffffff : INT_MIN)) return -INFINITY;
+  const int m = hi * (1 << SHIFT);
   return __int_as_float(m >= 0 ? m : (int)(0x80000000u | (unsigned)(-m)));
 }
 
@@ -343,8 +355,12 @@ __device__ __forceinline__ float score_bound(int kth, int keep_mask) {
 // query's score_bound is dropped before its key is made; the keys of the
 // rest are held against the k-th key by a ballot, and the survivors go
 // into the lists in rounds, as in the two-phase kernel.
-template <int KMAX, int CV>
-__global__ void __launch_bounds__(kThreads)
+// (Unbounded, ptxas gave the C=4, k <= 32 instance of one key 80 registers
+// and of the other 101, which one changing with unrelated edits to the
+// source: 101 leaves two blocks an SM in place of three, 13-17% slower.
+// Their bound asks for three.)
+template <int KMAX, int CV, int SHIFT>
+__global__ void __launch_bounds__(kThreads, KMAX == 32 && CV == 4 ? 3 : 1)
 knn_packed_kernel_fused(const float* __restrict__ x,      // (B, N, CV)
                         const float* __restrict__ q,      // (B, M, CV)
                         const float* __restrict__ cnorm,  // (B, N)
@@ -419,7 +435,7 @@ knn_packed_kernel_fused(const float* __restrict__ x,      // (B, N, CV)
         pass[qi] = __ballot_sync(0xffffffffu, o < N && !(sc < sb[qi]));
         v[qi] = INT_MIN;
         if (pass[qi]) {  // warp-uniform: a key only where a row may pass
-          v[qi] = pack_key(sc, n_pad - 1 - o, keep_mask);
+          v[qi] = key_of<SHIFT>(sc, n_pad - 1 - o, keep_mask);
           pass[qi] = __ballot_sync(0xffffffffu, o < N && v[qi] > kth[qi]);
         }
         any |= pass[qi];
@@ -427,7 +443,7 @@ knn_packed_kernel_fused(const float* __restrict__ x,      // (B, N, CV)
       if (!any) continue;  // warp-uniform
       insert_batch<QW, L>(lst, kth, v, pass, lane, K);
 #pragma unroll
-      for (int qi = 0; qi < QW; ++qi) sb[qi] = score_bound(kth[qi], keep_mask);
+      for (int qi = 0; qi < QW; ++qi) sb[qi] = score_bound<SHIFT>(kth[qi], keep_mask);
     }
     __syncthreads();  // every warp is done with the buffer the next copy fills
   }
@@ -435,8 +451,8 @@ knn_packed_kernel_fused(const float* __restrict__ x,      // (B, N, CV)
 }
 
 // qb: queries a block of the fused kernel (64 or 32); the two-phase one
-// takes kQB.
-template <int KMAX, int CV>
+// takes kQB. SHIFT: 1 the flat key, 0 the split key (idx_bits 13).
+template <int KMAX, int CV, int SHIFT>
 cudaError_t launch_flat(const float* x, const float* q, const float* cnorm,
                         const float* qnorm, int* out, const int* pred, int B, int N,
                         int M, int K, int n_pad, int idx_bits, int qb, cudaStream_t stream) {
@@ -449,7 +465,7 @@ cudaError_t launch_flat(const float* x, const float* q, const float* cnorm,
   if (smem > (size_t)limit) return cudaErrorInvalidValue;
   if constexpr (CV <= 8) {
     const dim3 grid((M + qb - 1) / qb, B);
-    auto kernel = knn_packed_kernel_fused<KMAX, CV>;
+    auto kernel = knn_packed_kernel_fused<KMAX, CV, SHIFT>;
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
     kernel<<<grid, qb / 8 * 32, smem, stream>>>(x, q, cnorm, qnorm, out, pred, N, M, K, n_pad,
@@ -457,7 +473,7 @@ cudaError_t launch_flat(const float* x, const float* q, const float* cnorm,
   } else {
     if (qb != kQB) return cudaErrorInvalidValue;
     const dim3 grid((M + kQB - 1) / kQB, B);
-    auto kernel = knn_packed_kernel<KMAX, CV>;
+    auto kernel = knn_packed_kernel<KMAX, CV, SHIFT>;
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
     kernel<<<grid, kThreads, smem, stream>>>(x, q, cnorm, qnorm, out, pred, N, M, K, n_pad,
@@ -466,184 +482,34 @@ cudaError_t launch_flat(const float* x, const float* q, const float* cnorm,
   return cudaGetLastError();
 }
 
-template <int KMAX>
+template <int KMAX, int SHIFT>
 cudaError_t launch_flat_cv(int cv, const float* x, const float* q, const float* cnorm,
                            const float* qnorm, int* out, const int* pred, int B, int N,
                            int M, int K, int n_pad, int idx_bits, int qb, cudaStream_t s) {
   switch (cv) {
-    case 4: return launch_flat<KMAX, 4>(x, q, cnorm, qnorm, out, pred, B, N, M, K, n_pad, idx_bits, qb, s);
-    case 8: return launch_flat<KMAX, 8>(x, q, cnorm, qnorm, out, pred, B, N, M, K, n_pad, idx_bits, qb, s);
-    case 16: return launch_flat<KMAX, 16>(x, q, cnorm, qnorm, out, pred, B, N, M, K, n_pad, idx_bits, qb, s);
-    case 32: return launch_flat<KMAX, 32>(x, q, cnorm, qnorm, out, pred, B, N, M, K, n_pad, idx_bits, qb, s);
-    case 64: return launch_flat<KMAX, 64>(x, q, cnorm, qnorm, out, pred, B, N, M, K, n_pad, idx_bits, qb, s);
+    case 4: return launch_flat<KMAX, 4, SHIFT>(x, q, cnorm, qnorm, out, pred, B, N, M, K, n_pad, idx_bits, qb, s);
+    case 8: return launch_flat<KMAX, 8, SHIFT>(x, q, cnorm, qnorm, out, pred, B, N, M, K, n_pad, idx_bits, qb, s);
+    case 16: return launch_flat<KMAX, 16, SHIFT>(x, q, cnorm, qnorm, out, pred, B, N, M, K, n_pad, idx_bits, qb, s);
+    case 32: return launch_flat<KMAX, 32, SHIFT>(x, q, cnorm, qnorm, out, pred, B, N, M, K, n_pad, idx_bits, qb, s);
+    case 64: return launch_flat<KMAX, 64, SHIFT>(x, q, cnorm, qnorm, out, pred, B, N, M, K, n_pad, idx_bits, qb, s);
     default: return cudaErrorInvalidValue;
   }
 }
-
-// ---- the split kernel ----
 
 constexpr int kLanes = 32;
-constexpr int kSlices = 8;  // warps per block, one sub-slice of the rows each
-constexpr int kChunk = 8;   // rows of each sub-slice staged per pass
-constexpr int kSplitIdxBits = 13;
+constexpr int kSplitIdxBits = 13;  // the split key's index field (n_pad <= 8192)
 
-// The split kernel's first pass: blockIdx.z = slice; un-shifted keys; the
-// slice's k largest KEYS to `part` = the (B, M, splits, K) scratch.
-template <int KMAX, int CV>
-__global__ void __launch_bounds__(kLanes * kSlices)
-knn_split_kernel(const float* __restrict__ x,      // (B, N, CV)
-                 const float* __restrict__ q,      // (B, M, CV)
-                 const float* __restrict__ cnorm,  // (B, N)
-                 const float* __restrict__ qnorm,  // (B, M)
-                 int* __restrict__ part,
-                 const int* __restrict__ pred,     // () or null
-                 int N, int M, int K, int n_pad) {
-  if (pred != nullptr && *pred == 0) return;
-  extern __shared__ float smem[];
-  const int lane = threadIdx.x % kLanes;
-  const int warp = threadIdx.x / kLanes;
-  const int b = blockIdx.y;
-  const int q0 = blockIdx.x * kLanes;
-  const int slots = kSlices * KMAX;
-  const int stride = slots + 1;  // odd: lane-strided stores avoid conflicts
-
-  float* xs = smem;                           // [kChunk][kSlices][CV]
-  float* xn = xs + kChunk * kSlices * CV;     // [kChunk][kSlices]
-  int* win = reinterpret_cast<int*>(xn + kChunk * kSlices);  // [32][stride]
-
-  const int qi = min(q0 + lane, M - 1);
-  float qv[CV];
-  load_query<CV>(qv, q + ((size_t)b * M + qi) * CV);
-  const float qn = qnorm[(size_t)b * M + qi];
-  const int imask = (1 << kSplitIdxBits) - 1;
-  const float* xb = x + (size_t)b * N * CV;
-  const float* cb = cnorm + (size_t)b * N;
-  const int vec = CV / 4;
-
-  int top[KMAX];
-#pragma unroll
-  for (int i = 0; i < KMAX; ++i) top[i] = INT_MIN;  // below every real key
-
-  // the rows of this block's slice: [lo, hi)
-  const int w = n_pad / (int)gridDim.z;
-  const int lo = min((int)blockIdx.z * w, N);
-  const int hi = min(lo + w, N);
-  const int per_slice = (hi - lo + kSlices - 1) / kSlices;
-  for (int j0 = 0; j0 < per_slice; j0 += kChunk) {
-    __syncthreads();
-    // stage rows o = lo + (j0 + jj) * kSlices + wi, one of every sub-slice per jj
-    for (int t = threadIdx.x; t < kChunk * kSlices * vec; t += blockDim.x) {
-      const int c4 = t % vec;
-      const int wi = (t / vec) % kSlices;
-      const int jj = t / (vec * kSlices);
-      const int o = lo + (j0 + jj) * kSlices + wi;
-      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (o < hi) v = reinterpret_cast<const float4*>(xb + (size_t)o * CV)[c4];
-      reinterpret_cast<float4*>(xs)[(jj * kSlices + wi) * vec + c4] = v;
-      if (c4 == 0) xn[jj * kSlices + wi] = o < hi ? cb[o] : 0.f;
-    }
-    __syncthreads();
-    for (int jj = 0; jj < kChunk; ++jj) {
-      const int o = lo + (j0 + jj) * kSlices + warp;
-      if (o >= hi) break;  // warp-uniform
-      const float sc = __fsub_rn(
-          knn_score<CV, false>(qv, xs + (jj * kSlices + warp) * CV, xn[jj * kSlices + warp]),
-          qn);
-      int v = (score_key(sc) & ~imask) | (n_pad - 1 - o);
-      if (v > top[KMAX - 1]) {
-#pragma unroll
-        for (int i = 0; i < KMAX; ++i) {
-          const int big = max(top[i], v);
-          v = min(top[i], v);
-          top[i] = big;
-        }
-      }
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < KMAX; ++i) win[lane * stride + warp * KMAX + i] = top[i];
-  __syncthreads();
-
-  // warp per query, k rounds of "largest key below the last winner"
-  for (int ql = warp; ql < kLanes; ql += kSlices) {
-    const int qq = q0 + ql;
-    if (qq >= M) break;  // warp-uniform
-    const int* keys = win + ql * stride;
-    const size_t orow = (((size_t)b * M + qq) * gridDim.z + blockIdx.z) * K;
-    int prev = INT_MAX;
-    for (int t = 0; t < K; ++t) {
-      int best = INT_MIN;
-      for (int i = lane; i < slots; i += kLanes) {
-        const int v = keys[i];
-        if (v < prev && v > best) best = v;
-      }
-#pragma unroll
-      for (int off = kLanes / 2; off > 0; off >>= 1)
-        best = max(best, __shfl_xor_sync(0xffffffffu, best, off));
-      if (lane == 0) part[orow + t] = best;
-      prev = best;
-    }
-  }
-}
-
-// The split kernel's second pass: for each (b, query) row of the
-// (B, M, splits, K) winner keys, the K largest, decoded to indices;
-// warp per query, K rounds of "largest key below the last winner" (the
-// keys are re-read from L1 / L2 each round).
-__global__ void __launch_bounds__(kLanes * kSlices)
-knn_split_merge_kernel(const int* __restrict__ part,  // (B*M, count)
-                       int* __restrict__ out,         // (B*M, K)
-                       const int* __restrict__ pred,  // () or null
-                       size_t rows, int count, int K, int n_pad, int imask) {
-  if (pred != nullptr && *pred == 0) return;
-  const int lane = threadIdx.x % kLanes;
-  const size_t row = (size_t)blockIdx.x * kSlices + threadIdx.x / kLanes;
-  if (row >= rows) return;  // warp-uniform
-  const int* keys = part + row * count;
-  int prev = INT_MAX;
-  for (int t = 0; t < K; ++t) {
-    int best = INT_MIN;
-    for (int i = lane; i < count; i += kLanes) {
-      const int v = keys[i];
-      if (v < prev && v > best) best = v;
-    }
-#pragma unroll
-    for (int off = kLanes / 2; off > 0; off >>= 1)
-      best = max(best, __shfl_xor_sync(0xffffffffu, best, off));
-    if (lane == 0) out[row * K + t] = n_pad - 1 - (best & imask);
-    prev = best;
-  }
-}
-
-template <int KMAX, int CV>
-cudaError_t launch_split(const float* x, const float* q, const float* cnorm,
-                         const float* qnorm, int* part, const int* pred, int B, int N,
-                         int M, int K, int n_pad, int splits, cudaStream_t stream) {
-  const size_t smem =
-      sizeof(float) * ((size_t)kChunk * kSlices * CV + kChunk * kSlices +
-                       (size_t)kLanes * (kSlices * KMAX + 1));
-  auto kernel = knn_split_kernel<KMAX, CV>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((M + kLanes - 1) / kLanes, B, splits);
-  kernel<<<grid, kLanes * kSlices, smem, stream>>>(x, q, cnorm, qnorm, part, pred, N, M, K,
-                                                   n_pad);
-  return cudaGetLastError();
-}
-
-template <int KMAX>
-cudaError_t launch_split_cv(int cv, const float* x, const float* q, const float* cnorm,
-                            const float* qnorm, int* part, const int* pred, int B, int N,
-                            int M, int K, int n_pad, int splits, cudaStream_t s) {
-  switch (cv) {
-    case 4: return launch_split<KMAX, 4>(x, q, cnorm, qnorm, part, pred, B, N, M, K, n_pad, splits, s);
-    case 8: return launch_split<KMAX, 8>(x, q, cnorm, qnorm, part, pred, B, N, M, K, n_pad, splits, s);
-    case 16: return launch_split<KMAX, 16>(x, q, cnorm, qnorm, part, pred, B, N, M, K, n_pad, splits, s);
-    case 32: return launch_split<KMAX, 32>(x, q, cnorm, qnorm, part, pred, B, N, M, K, n_pad, splits, s);
-    case 64: return launch_split<KMAX, 64>(x, q, cnorm, qnorm, part, pred, B, N, M, K, n_pad, splits, s);
-    default: return cudaErrorInvalidValue;
-  }
+// Both entry points: 1 <= K <= 64, K <= N, qb 64 or 32.
+template <int SHIFT>
+int launch_packed(const float* x, const float* q, const float* cnorm, const float* qnorm,
+                  int* out, const int* pred, int B, int N, int M, int cv, int K, int n_pad,
+                  int idx_bits, int qb, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (K < 1 || K > 2 * kLanes || K > N || (qb != 64 && qb != 32)) return cudaErrorInvalidValue;
+  if (B == 0 || M == 0) return cudaSuccess;
+  return K <= kLanes
+             ? launch_flat_cv<kLanes, SHIFT>(cv, x, q, cnorm, qnorm, out, pred, B, N, M, K, n_pad, idx_bits, qb, s)
+             : launch_flat_cv<2 * kLanes, SHIFT>(cv, x, q, cnorm, qnorm, out, pred, B, N, M, K, n_pad, idx_bits, qb, s);
 }
 
 }  // namespace
@@ -658,35 +524,17 @@ extern "C" int dgcnn_knn_packed(const float* x, const float* q,
                                 int* out, const int* pred, int B, int N, int M,
                                 int cv, int K, int n_pad, int idx_bits, int qb,
                                 void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (K < 1 || K > 2 * kLanes || K > N || (qb != 64 && qb != 32)) return cudaErrorInvalidValue;
-  if (B == 0 || M == 0) return cudaSuccess;
-  return K <= kLanes
-             ? launch_flat_cv<kLanes>(cv, x, q, cnorm, qnorm, out, pred, B, N, M, K, n_pad, idx_bits, qb, s)
-             : launch_flat_cv<2 * kLanes>(cv, x, q, cnorm, qnorm, out, pred, B, N, M, K, n_pad, idx_bits, qb, s);
+  return launch_packed<1>(x, q, cnorm, qnorm, out, pred, B, N, M, cv, K, n_pad, idx_bits, qb,
+                          stream);
 }
 
-// The split kernel: as dgcnn_knn_packed, with n_pad <= 8192 (13 index
-// bits), 2 <= splits <= 65535 dividing n_pad, and `part` a (B,M,splits,K)
-// int32 scratch. Two launches on `stream`. Returns a cudaError_t.
+// The split kernel: as dgcnn_knn_packed on the split key, with n_pad <=
+// 8192 (its 13 index bits). One launch on `stream`. Returns a cudaError_t.
 extern "C" int dgcnn_knn_packed_split(const float* x, const float* q,
                                       const float* cnorm, const float* qnorm,
-                                      int* part, int* out, const int* pred,
-                                      int B, int N, int M, int cv, int K,
-                                      int n_pad, int splits, void* stream) {
-  if (n_pad > (1 << kSplitIdxBits) || splits < 2 || splits > 65535 || n_pad % splits)
-    return cudaErrorInvalidValue;
-  if (K < 1 || K > 2 * kLanes) return cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err =
-      K <= kLanes
-          ? launch_split_cv<kLanes>(cv, x, q, cnorm, qnorm, part, pred, B, N, M, K, n_pad, splits, s)
-          : launch_split_cv<2 * kLanes>(cv, x, q, cnorm, qnorm, part, pred, B, N, M, K, n_pad, splits, s);
-  if (err != cudaSuccess) return err;
-  const size_t rows = (size_t)B * M;
-  if (rows == 0) return cudaSuccess;
-  const size_t blocks = (rows + kSlices - 1) / kSlices;
-  knn_split_merge_kernel<<<(unsigned)blocks, kLanes * kSlices, 0, s>>>(
-      part, out, pred, rows, splits * K, K, n_pad, (1 << kSplitIdxBits) - 1);
-  return cudaGetLastError();
+                                      int* out, const int* pred, int B, int N, int M,
+                                      int cv, int K, int n_pad, int qb, void* stream) {
+  if (n_pad > (1 << kSplitIdxBits)) return cudaErrorInvalidValue;
+  return launch_packed<0>(x, q, cnorm, qnorm, out, pred, B, N, M, cv, K, n_pad, kSplitIdxBits,
+                          qb, stream);
 }

@@ -19,8 +19,11 @@ and carry a fixed 13-bit index field (:func:`packed_keys` with
 ``shift=0``): 19 bits of score where the flat kernel keeps 18, so the two
 select differently wherever two distances agree in 18 bits but not in 19
 (the TPU docstrings' "identical to splits=1" holds only where they do
-not). The slices only shape the kernel's work: keys are unique, so the
-result is the top-k of the split keys.
+not). The slices only shape the work: keys are unique, so the result is
+the top-k of the split keys over all N rows, and the split kernel is the
+flat kernel's body on the split key (``dgcnn_knn_packed_split``: one
+launch, no scratch), its float prefilter derived for that key
+(:func:`score_bound`).
 
 :func:`knn_packed` runs the CUDA kernels (``csrc/knn_packed.cu``) on a
 CUDA tensor, counted in ``knn_packed.launches`` (flat) and
@@ -40,6 +43,7 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from dgcnn_tpu_torch.kernels import _build
@@ -154,6 +158,21 @@ def knn_packed_split_plain(x: torch.Tensor, k: int, *,
     return _top_by_keys(x, x if queries is None else queries, k, n_pad, _SPLIT_IDX_BITS, 0)
 
 
+def score_bound(kth: int, keep_mask: int, shift: int) -> np.float32:
+    """The fused kernel's float prefilter, as ``csrc/knn_packed.cu::
+    score_bound<SHIFT>`` computes it: the least score whose packed key
+    ``((monotone_int(score) >> shift) & keep_mask) | low`` can reach the
+    int32 key ``kth`` (shift 1: the flat key, 0: the split key). A score
+    below it has a key below ``kth``; -inf where nothing is excluded, NaN
+    (which excludes nothing) where the bound's bits are a NaN's."""
+    hi = kth & keep_mask
+    if kth == -(1 << 31) or hi <= (-0x3fffffff if shift else -(1 << 31)):
+        return np.float32(-np.inf)
+    m = hi << shift
+    bits = m if m >= 0 else 0x80000000 | -m
+    return np.array([bits], np.uint32).view(np.float32)[0]
+
+
 def _checked(x: torch.Tensor, k: int, queries: torch.Tensor | None):
     """(x, q) as float32 after the wrappers' shape checks."""
     b, n, c = x.shape
@@ -253,11 +272,12 @@ def _knn_packed_split(x: torch.Tensor, k: int, splits: int,
                       pred: torch.Tensor | None) -> torch.Tensor:
     """The split kernel (``_knn_kernel_packed_split``), reached through
     :func:`knn_packed` where :func:`split_applies`, on its checked float32
-    operands: the packed kNN with the candidate rows cut into ``splits``
-    contiguous slices, each with its own top-k, then one merge. (B, M, k)
-    int32, nearest first. Launches the CUDA kernel on a CUDA tensor
-    (counted in ``_knn_packed_split.launches``) and
-    :func:`knn_packed_split_plain` on a CPU tensor."""
+    operands: the top-k of the split keys, which the TPU kernel takes over
+    ``splits`` contiguous slices of the rows and one merge, and which does
+    not depend on the slicing (keys are unique), so ``splits`` shapes no
+    work here. (B, M, k) int32, nearest first. Launches the CUDA kernel on
+    a CUDA tensor (:func:`launch_split`) and :func:`knn_packed_split_plain`
+    on a CPU tensor."""
     b, n, _ = x.shape
     q = x if queries is None else queries
     if x.device.type == "cpu":
@@ -265,15 +285,23 @@ def _knn_packed_split(x: torch.Tensor, k: int, splits: int,
             return torch.zeros((b, q.shape[1], k), dtype=torch.int32)
         return knn_packed_split_plain(x, k, queries=queries)
     x, q, cn, qn, cv = _operands(x, q, queries is None, k)
+    return launch_split(x, q, cn, qn, k, qb=launch_geometry(cv, b, q.shape[1]), pred=pred)
+
+
+def launch_split(x: torch.Tensor, q: torch.Tensor, cn: torch.Tensor, qn: torch.Tensor,
+                 k: int, *, qb: int, pred: torch.Tensor | None = None) -> torch.Tensor:
+    """One launch of the split kernel (the flat kernel on the split key) on
+    prepared CUDA tensors, as :func:`launch_kernel` takes them; n_pad <=
+    8192. (B, M, k) int32. Counted in ``_knn_packed_split.launches``."""
+    b, n, cv = x.shape
     m = q.shape[1]
     n_pad, _ = packed_geometry(n)
     flag = _build.predicate(pred, x.device)
-    part = torch.empty((b, m, splits, k), dtype=torch.int32, device=x.device)
     out = torch.empty((b, m, k), dtype=torch.int32, device=x.device)
     err = _build.lib().dgcnn_knn_packed_split(
-        x.data_ptr(), q.data_ptr(), cn.data_ptr(), qn.data_ptr(), part.data_ptr(),
-        out.data_ptr(), None if flag is None else flag.data_ptr(), b, n, m, cv, k,
-        n_pad, splits, _stream(x.device))
+        x.data_ptr(), q.data_ptr(), cn.data_ptr(), qn.data_ptr(), out.data_ptr(),
+        None if flag is None else flag.data_ptr(), b, n, m, cv, k, n_pad, qb,
+        _stream(x.device))
     _build.check(err, "knn_packed_split")
     _knn_packed_split.launches += 1
     return out

@@ -19,6 +19,15 @@ CPU tensors. Indices are clamped to [0, N), where the forward gather reads
 them (the JAX scatter drops an index >= N instead; the port's gather
 clamps, so its adjoint clamps too). The kernels add with atomics, so the
 FP32 sum order changes from run to run.
+
+The tail kernel cuts the global reductions the TPU kernel avoids by
+keeping its accumulator in VMEM: a block sorts the entries of a tile of
+``qt`` neighbouring queries by target row in shared memory, sums each row's
+entries in registers and adds one sum per (row, channel) of the tile into
+the output; stage 3's neighbours are local, so a tile's entries fall on far
+fewer rows than entries. Rows past the tile's histogram take the first
+design (a warp per query, a reduction per entry). :func:`tail_plan` chooses
+the route and ``qt`` from the shape.
 """
 
 from __future__ import annotations
@@ -29,8 +38,38 @@ import torch
 
 from dgcnn_tpu_torch.kernels import _build
 
-_TAIL_MAX_C = 128  # the tail kernel keeps <= 4 channels per lane
 _TAIL_MAX_K = 127  # argmax slots travel as int8
+_TAIL_GLOBAL_MAX_C = 128  # the global route keeps <= 4 channels per lane
+SMEM_LIMIT = 232448  # shared memory a Hopper block may take (bytes)
+SMS = 132  # the H100 SXM's streaming multiprocessors
+TAIL_MAX_ROWS = 32768  # the tile route's rows (15 bits in a sorted entry)
+TAIL_MAX_QUERIES = 512  # its queries a tile (9 bits)
+TAIL_TILE_ENTRIES = 2048  # the entries (qt * k) a tile takes at most; the kernel takes <= 8192
+
+
+def tile_smem_bytes(n: int, k: int, c: int, qt: int) -> int:
+    """The tile kernel's shared memory, as ``csrc/scatter_rows.cu::
+    tile_smem_bytes`` computes it: the histogram of ``n`` rows and two int
+    arrays of the tile's ``qt * k`` entries (rounded up to 16 bytes), then
+    the tile's ``qt`` rows of u and w (FP32) and of argmax slots (int8)."""
+    return 4 * -(-(n + 2 * qt * k) // 4) * 4 + 9 * qt * c
+
+
+def tail_plan(b: int, n: int, k: int, c: int, budget: int = SMEM_LIMIT,
+              entries: int = TAIL_TILE_ENTRIES, sms: int = SMS) -> int:
+    """Queries a tile of the tail kernel for (b, n, c) tables and k
+    neighbours: as many as keep the tile's entries within ``entries`` (at
+    most :data:`TAIL_MAX_QUERIES` and ``n``) and the ``b * n / qt`` tiles
+    at least the card's ``sms`` where the batch allows, halved until the
+    tile's shared memory fits the ``budget`` bytes a block may take; or 0,
+    the global route, where ``n`` exceeds :data:`TAIL_MAX_ROWS` or not even
+    one query fits."""
+    if n > TAIL_MAX_ROWS:
+        return 0
+    qt = max(1, min(TAIL_MAX_QUERIES, entries // k, n, b * n // sms))
+    while qt > 1 and tile_smem_bytes(n, k, c, qt) > budget:
+        qt //= 2
+    return qt if tile_smem_bytes(n, k, c, qt) <= budget else 0
 
 
 def _flat_targets(idx: torch.Tensor, n: int) -> torch.Tensor:
@@ -106,8 +145,9 @@ def scatter_stage_tail_rows(u: torch.Tensor, w: torch.Tensor, am: torch.Tensor,
     ``count[b, idx[b,q,j]] += 1``: u, w (B, N, C) float32, am (B, N, C)
     argmax k-slots, idx (B, N, k) int -> ``(sums (B, N, C), count (B, N))``.
     Launches the CUDA kernel on CUDA tensors (counted in
-    ``scatter_stage_tail_rows.launches``), the plain version on CPU tensors.
-    ``pred`` as for :func:`scatter_add_rows`."""
+    ``scatter_stage_tail_rows.launches``), with the tile :func:`tail_plan`
+    gives, the plain version on CPU tensors. ``pred`` as for
+    :func:`scatter_add_rows`."""
     if u.ndim != 3 or w.shape != u.shape or am.shape != u.shape or \
             idx.ndim != 3 or idx.shape[:2] != u.shape[:2]:
         raise ValueError(f"u {tuple(u.shape)}, w {tuple(w.shape)}, am {tuple(am.shape)} "
@@ -120,9 +160,11 @@ def scatter_stage_tail_rows(u: torch.Tensor, w: torch.Tensor, am: torch.Tensor,
         raise ValueError(f"scatter_stage_tail_rows runs on cpu or cuda, not {u.device}")
     b, n, c = u.shape
     k = idx.shape[-1]
-    if c > _TAIL_MAX_C or k > _TAIL_MAX_K:
-        raise ValueError(f"the CUDA stage-tail kernel takes C <= {_TAIL_MAX_C} and "
-                         f"k <= {_TAIL_MAX_K}, not C={c}, k={k}")
+    qt = tail_plan(b, n, k, c)
+    if k > _TAIL_MAX_K or (qt == 0 and c > _TAIL_GLOBAL_MAX_C):
+        raise ValueError(f"the CUDA stage-tail kernel takes k <= {_TAIL_MAX_K}, and C <= "
+                         f"{_TAIL_GLOBAL_MAX_C} past {TAIL_MAX_ROWS} rows, not k={k}, C={c}, "
+                         f"N={n}")
     for t in (u, w, am, idx):
         if t.device != u.device:
             raise ValueError(f"operands must all be on {u.device}")
@@ -130,12 +172,24 @@ def scatter_stage_tail_rows(u: torch.Tensor, w: torch.Tensor, am: torch.Tensor,
         raise ValueError("u and w must be float32, idx int32")
     u, w, idx = u.contiguous(), w.contiguous(), idx.contiguous()
     am = am.to(torch.int8).contiguous()
+    return launch_tail(u, w, am, idx, qt=qt, pred=pred)
+
+
+def launch_tail(u: torch.Tensor, w: torch.Tensor, am: torch.Tensor, idx: torch.Tensor, *,
+                qt: int, pred: torch.Tensor | None = None,
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """One launch of the tail kernel on prepared CUDA tensors (u, w float32,
+    am int8, idx int32, all contiguous) with ``qt`` queries a tile
+    (:func:`tail_plan`'s; 0: the global route), into zeroed outputs.
+    Counted in ``scatter_stage_tail_rows.launches``."""
+    b, n, c = u.shape
+    k = idx.shape[-1]
     flag = _build.predicate(pred, u.device)
     sums = torch.zeros((b, n, c), dtype=torch.float32, device=u.device)
     count = torch.zeros((b, n), dtype=torch.float32, device=u.device)
     err = _build.lib().dgcnn_scatter_stage_tail(
         u.data_ptr(), w.data_ptr(), am.data_ptr(), idx.data_ptr(), sums.data_ptr(),
-        count.data_ptr(), None if flag is None else flag.data_ptr(), b, n, k, c,
+        count.data_ptr(), None if flag is None else flag.data_ptr(), b, n, k, c, qt,
         _stream(u.device))
     _build.check(err, "scatter_stage_tail_rows")
     scatter_stage_tail_rows.launches += 1

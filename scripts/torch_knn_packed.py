@@ -19,16 +19,20 @@ Inputs, from seeds (self-kNN, k=30, B=8, N=7000 unless named):
   B=1 N=1001 (C=4); B=1 N=30000 (C=4, 15 index bits); the capped kNN's
   small-input fallback (N=200, ``knn_capped`` with one window);
 * the split kernel (``knn_packed(..., splits=s)``), splits 2 and 8, on the
-  integer C=4 cloud and the C=64 features;
+  integer C=4 cloud, the ``make_blocks`` points and the C=64 features, and
+  splits 8 on the 1000 C=64 queries;
 * a launch with a False predicate (the C=64 features).
 
 Per input:
 
 * ``ms``: the kernel alone (row norms and padding made beforehand; the
-  split cases through the wrapper), device-only: back-to-back launches
-  between a pair of CUDA events queued behind a device sleep
-  (``chip_smoke.cuda_ms_many``), median of 10 runs; ``wrapper_ms``:
-  ``knn_packed`` (the norms, then the kernel), timed the same way;
+  split cases where the tree's wrapper has ``launch_split``, one launch
+  with no scratch), device-only: back-to-back launches between a pair of
+  CUDA events queued behind a device sleep (``chip_smoke.cuda_ms_many``),
+  median of 10 runs; ``wrapper_ms``: ``knn_packed`` (the norms, then the
+  kernel; a tree's split kernel with its scratch and merge), timed the same
+  way; the split cases also time the flat kernel alone on the same input
+  (``flat_ms``);
 * the indices go to ``--out``; where a run on another tree wrote them
   first, they must be ``torch.equal``. On the integer inputs they must also
   equal the plain version's;
@@ -39,6 +43,11 @@ Per input:
 Then the packed-mode forward of ``chip_smoke.py``'s phase 6 model (emb
 1024, seeded weights, the ``make_blocks`` batch): its probabilities go to
 ``--out`` and must be ``torch.equal`` to the other tree's.
+
+``--split_digests`` prints instead the SHA-256 digests (first 16 hex
+digits) of the tree's split kernel's indices, splits 2, on each input of
+``chip_smoke.split_inputs`` (self and 1000 queries): run on the tree of the
+first split kernel, they are ``chip_smoke.SPLIT_DIGESTS``.
 
 ``--variants`` (a tree whose wrapper has ``launch_kernel``) also times each
 float C <= 8 input of the flat kernel (the fused kernel) at the other block
@@ -99,8 +108,11 @@ def _inputs(cs, dev):
         "int N=200 C=4 (capped fallback)": (int4[:, :200].contiguous(), None, K, True, 0),
         "int C=4 splits 2": (int4, None, K, True, 2),
         "int C=4 splits 8": (int4, None, K, True, 8),
+        "C=4 (blocks) splits 2": (pts, None, K, False, 2),
+        "C=4 (blocks) splits 8": (pts, None, K, False, 8),
         "C=64 splits 2": (feats, None, K, False, 2),
         "C=64 splits 8": (feats, None, K, False, 8),
+        "queries M=1000 C=64 splits 8": (feats, feats[:, rows].contiguous(), K, False, 8),
     }
 
 
@@ -160,6 +172,9 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default="", help="directory of the outputs to hold trees against")
     ap.add_argument("--variants", action="store_true",
                     help="also time the fused kernel's other block size")
+    ap.add_argument("--split_digests", action="store_true",
+                    help="print the digests of the split kernel's indices on "
+                         "chip_smoke.split_inputs instead")
     args = ap.parse_args(argv)
     root = str(Path(args.root).resolve())
     sys.path.insert(0, root)  # the measured package first
@@ -181,6 +196,14 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     dev = torch.device("cuda")
+    if args.split_digests:
+        pts = torch.from_numpy(cs.make_blocks(8, 7000, seed=0)).to(dev)
+        digests = {f"{name} {tag}": cs.digest(mod.knn_packed(x, K, queries=qq, splits=2))
+                   for name, x, _, _, q in cs.split_inputs(pts)
+                   for tag, qq in (("self", None), ("1000 queries", q))}
+        print(json.dumps({"label": args.label, "root": root, "device": smi,
+                          "split_digests": digests}))
+        return 0
     out = Path(args.out) if args.out else None
     if out is not None:
         out.mkdir(parents=True, exist_ok=True)
@@ -216,6 +239,16 @@ def main(argv=None) -> int:
                     var[f"qb={qb}" + (" (shipped)" if qb == shipped else "")] = \
                         cs.cuda_ms_many(_raw(mod, _build, xp, qp, cn, qn, k, qb=qb), launches, 5)
                 row["variants"] = var
+        elif splits > 1:
+            xp, qp, cn, qn = _prepared(_build, x, q)
+            if hasattr(mod, "launch_split"):
+                qb = mod.launch_geometry(xp.shape[-1], xp.shape[0], qp.shape[1])
+                row["ms"] = cs.cuda_ms_many(
+                    lambda: mod.launch_split(xp, qp, cn, qn, k, qb=qb), launches)
+            row["flat_ms"] = cs.cuda_ms_many(_raw(mod, _build, xp, qp, cn, qn, k), launches)
+            b_ms, b_by = _bound(cs, x, q, k)
+            row.update(bound_ms=b_ms, bound_by=b_by,
+                       bound_share=b_ms / row.get("ms", row["wrapper_ms"]))
         row["equal_to"] = hold(out, name, idx.cpu(), root)
         cases[name] = row
         print(f"{args.label or root} {name}: " + ", ".join(

@@ -47,8 +47,6 @@ GROUPS = (
     ("knn_banded_tile_kernel", "knn_banded"),
     ("knn_capped_kernel", "knn_capped"),
     ("knn_exact_kernel", "knn_exact"),
-    ("knn_split_kernel", "knn_packed_split"),
-    ("knn_split_merge", "knn_packed_split (merge)"),
     ("gather_rows", "gather_rows"),
     ("scatter_rows", "scatter_add_rows"),
     ("scatter_tail", "scatter_stage_tail_rows"),

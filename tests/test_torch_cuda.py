@@ -668,6 +668,90 @@ def test_scatter_stage_tail_kernel_equals_plain(dev):
     assert not scatter_stage_tail_rows(u, w, am, idx, pred=no)[0].any()
 
 
+def _assert_tail_close(got, want, u, w, am, idx):
+    """The tail's sums within 1e-5 (absolute and relative) of the plain
+    version's, or, on a row that takes many entries (a clamped row 0 or
+    N-1, a hub of a feature-space kNN), within twice the recursive-
+    summation bound (hits - 1) * 2^-24 * sum |term| of each of the two
+    sums, which add the same terms in different (atomic) orders; the count
+    exact."""
+    from dgcnn_tpu_torch.kernels.scatter_rows import scatter_stage_tail_rows_plain
+
+    mag, count = scatter_stage_tail_rows_plain(u.abs(), w.abs(), am, idx)
+    assert torch.equal(got[1], want[1]) and torch.equal(got[1], count)
+    bound = 2 * count[..., None] * 2.0 ** -24 * mag
+    err = (got[0] - want[0]).abs()
+    assert (err <= torch.maximum(1e-5 + 1e-5 * want[0].abs(), bound)).all(), err.max().item()
+
+
+# (b, n, k, c): widths of one to three channel chunks, a ragged cloud of
+# one element, and one past the tile's rows (the global route)
+TAIL_CASES = [*[(2, 3001, 30, c) for c in (1, 3, 4, 64, 128)],
+              (1, 1001, 20, 64), (1, 1001, 1, 5), (1, 60000, 30, 64)]
+
+
+@pytest.mark.parametrize("b, n, k, c", TAIL_CASES)
+def test_scatter_stage_tail_kernel_cases(dev, b, n, k, c):
+    """The tail kernel at its plan's tile against the plain version,
+    indices in [-7, N+7) clamped; a False predicate leaves zeros on both
+    routes."""
+    from dgcnn_tpu_torch.kernels.scatter_rows import (
+        scatter_stage_tail_rows, scatter_stage_tail_rows_plain, tail_plan)
+
+    rng = np.random.default_rng(n + c + k)
+    u, w = _on(dev, *rng.standard_normal((2, b, n, c)).astype(np.float32))
+    am, = _on(dev, rng.integers(-1, k, (b, n, c)).astype(np.int8))
+    idx, = _on(dev, rng.integers(-7, n + 7, (b, n, k)).astype(np.int32))
+    before = scatter_stage_tail_rows.launches
+    got = scatter_stage_tail_rows(u, w, am, idx)
+    torch.cuda.synchronize()
+    assert scatter_stage_tail_rows.launches == before + 1
+    _assert_tail_close(got, scatter_stage_tail_rows_plain(u, w, am, idx), u, w, am, idx)
+    assert (tail_plan(b, n, k, c) == 0) == (n == 60000)  # the route the case is for
+    no = torch.zeros((), dtype=torch.bool, device=dev)
+    assert not any(t.any() for t in scatter_stage_tail_rows(u, w, am, idx, pred=no))
+
+
+def test_scatter_stage_tail_kernel_on_feature_knn(dev):
+    """The production shape (B=8, N=7000, k=30, C=64) on feature-space kNN
+    indices, as stage 3 hands them (hubs: rows many queries share)."""
+    from dgcnn_tpu_torch.kernels.scatter_rows import (
+        scatter_stage_tail_rows, scatter_stage_tail_rows_plain, tail_plan)
+
+    rng = np.random.default_rng(12)
+    feats, u, w = _on(dev, *rng.standard_normal((3, 8, 7000, 64)).astype(np.float32))
+    am, = _on(dev, rng.integers(0, 30, (8, 7000, 64)).astype(np.int8))
+    idx = knn_capped(feats, 30)
+    assert tail_plan(8, 7000, 30, 64) == 68
+    _assert_tail_close(scatter_stage_tail_rows(u, w, am, idx),
+                       scatter_stage_tail_rows_plain(u, w, am, idx), u, w, am, idx)
+
+
+# (c, qt, shift): one to three chunks of 64 channels two a lane (C even)
+# or 32 one a lane (C odd), tables aligned or one float off (shift 1),
+# tiles of 1 to 136 queries (4080 entries), the global route
+TAIL_GEOMETRIES = [*[(c, qt, s) for c in (3, 64, 130) for qt in (1, 7, 68, 136)
+                     for s in (0, 1)], *[(c, 0, s) for c in (3, 64) for s in (0, 1)]]
+
+
+@pytest.mark.parametrize("c, qt, shift", TAIL_GEOMETRIES)
+def test_scatter_stage_tail_kernel_geometries(dev, c, qt, shift):
+    """Every instance and tile of the kernel, whatever the plan would take;
+    a False predicate leaves zeros."""
+    from dgcnn_tpu_torch.kernels.scatter_rows import launch_tail, scatter_stage_tail_rows_plain
+
+    b, n, k = 2, 2500, 30
+    rng = np.random.default_rng(c + qt)
+    u = _shifted(dev, rng.standard_normal((b, n, c)).astype(np.float32), shift)
+    w = _shifted(dev, rng.standard_normal((b, n, c)).astype(np.float32), shift)
+    am, = _on(dev, rng.integers(-1, k, (b, n, c)).astype(np.int8))
+    idx, = _on(dev, rng.integers(-7, n + 7, (b, n, k)).astype(np.int32))
+    got = launch_tail(u, w, am, idx, qt=qt)
+    _assert_tail_close(got, scatter_stage_tail_rows_plain(u, w, am, idx), u, w, am, idx)
+    no = torch.zeros((), dtype=torch.bool, device=dev)
+    assert not any(t.any() for t in launch_tail(u, w, am, idx, qt=qt, pred=no))
+
+
 def test_train_step_on_cuda_matches_cpu_plain_versions(dev):
     """One training forward and backward (default configuration, dropout
     off) on the card against the CPU plain versions of the banded path,
@@ -741,6 +825,42 @@ def test_split_kernel_equals_plain_on_integer_inputs(dev, c, splits):
     assert torch.equal(knn_packed(x, 13, queries=q, splits=splits),
                        knn_packed_split_plain(x, 13, queries=q))
     assert _knn_packed_split.launches == before + 2
+
+
+@pytest.mark.parametrize("c", [4, 64])
+def test_split_kernel_at_the_production_shape(dev, c):
+    """B=8, N=7000: on integers in [0, 16), where the split keys part from
+    the flat ones, equal to the plain version; on floats, splits 2 and 8
+    equal (the slicing shapes no result)."""
+    from dgcnn_tpu_torch.kernels.knn_packed import knn_packed_split_plain
+
+    rng = np.random.default_rng(c)
+    ints, floats = _on(dev, rng.integers(0, 16, (8, 7000, c)).astype(np.float32),
+                       rng.standard_normal((8, 7000, c)).astype(np.float32))
+    assert torch.equal(knn_packed(ints, 30, splits=2), knn_packed_split_plain(ints, 30))
+    assert torch.equal(knn_packed(ints, 30, splits=8), knn_packed_split_plain(ints, 30))
+    assert torch.equal(knn_packed(floats, 30, splits=2), knn_packed(floats, 30, splits=8))
+
+
+def test_split_routing_and_launch_counts(dev):
+    """As chip_smoke.path_split: splits 2 and 8 launch the split kernel
+    once each; splits=3 (7040 % 3 != 0) and N=9000 (n_pad 9088 > 8192) the
+    flat kernel; the split entry point refuses n_pad > 8192."""
+    from dgcnn_tpu_torch.kernels.knn_packed import _knn_packed_split, launch_split
+
+    rng = np.random.default_rng(16)
+    x, big = _on(dev, rng.standard_normal((2, 7000, 64)).astype(np.float32),
+                 rng.standard_normal((1, 9000, 4)).astype(np.float32))
+    for run, want in ((lambda: knn_packed(x, 30, splits=2), (0, 1)),
+                      (lambda: knn_packed(x, 30, queries=x[:, :1000], splits=8), (0, 1)),
+                      (lambda: knn_packed(x, 30, splits=3), (1, 0)),
+                      (lambda: knn_packed(big, 30, splits=2), (1, 0))):
+        before = knn_packed.launches, _knn_packed_split.launches
+        run()
+        assert (knn_packed.launches - before[0], _knn_packed_split.launches - before[1]) == want
+    norms = (big * big).sum(-1)
+    with pytest.raises(RuntimeError, match="knn_packed_split"):
+        launch_split(big, big, norms, norms, 30, qb=32)
 
 
 def test_eval_test_on_the_card(dev, tmp_path):

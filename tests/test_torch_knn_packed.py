@@ -21,6 +21,7 @@ from dgcnn_tpu_torch.kernels.knn_packed import (
     knn_packed_plain,
     knn_packed_split_plain,
     packed_geometry,
+    score_bound,
     split_applies,
 )
 
@@ -163,3 +164,62 @@ def test_split_wrapper_on_cpu_honours_pred():
                        knn_packed_split_plain(x, 10))
     with pytest.raises(ValueError, match="n_pad <= 8192"):
         knn_packed_split_plain(torch.zeros(1, 8300, 3), 8)
+
+
+def _monotone(scores: np.ndarray) -> np.ndarray:
+    """The order-exact int32 of FP32 scores (knn_common.cuh::score_key)."""
+    bits = scores.astype(np.float32).view(np.int32).astype(np.int64)
+    return np.where(bits >= 0, bits, -(bits & 0x7FFFFFFF))
+
+
+def _packed(scores, rows, n_pad, idx_bits, shift):
+    """The packed keys (int64 values of the int32 keys) of scores at rows."""
+    keep = ~((1 << idx_bits) - 1)
+    return ((_monotone(scores) >> shift) & keep) | (n_pad - 1 - rows)
+
+
+def _probe_scores(rng) -> np.ndarray:
+    """FP32 scores of every kind the fused kernel meets: recentred squared
+    distances (negative) and their ties, positive scores large and small,
+    the two zeros, subnormals, the extremes, -inf, +inf and NaN, and each
+    one's neighbours by one unit in the last place."""
+    base = np.concatenate([
+        -rng.gamma(2.0, 3.0, 3000), rng.normal(0, 50, 1000), rng.uniform(0, 4, 500),
+        -rng.uniform(0, 1e-3, 500), np.repeat(-rng.uniform(0, 10, 50), 8),  # ties
+        [0.0, -0.0, 1e-45, -1e-45, 1e-38, -1e-38, 3.4e38, -3.4e38, -np.inf, np.inf, np.nan],
+    ]).astype(np.float32)
+    return np.concatenate([base, np.nextafter(base, np.float32(np.inf)),
+                           np.nextafter(base, np.float32(-np.inf))])
+
+
+@pytest.mark.parametrize("shift, idx_bits", [(0, 13), (1, 13), (1, 14), (1, 15)])
+def test_score_bound_drops_no_score_whose_key_beats_the_kth(shift, idx_bits):
+    """The fused kernel's float prefilter (``score_bound``, split key shift
+    0 with its 13 index bits, flat key shift 1 at 13-15): a score below the
+    bound of the k-th key so far never has a key above it, for k-th keys
+    drawn from real scores (ties, both signs, zeros, subnormals, -inf,
+    +inf, NaN) and the empty list's INT_MIN, on those scores and on the
+    bound itself and its neighbours (at row 0: the largest index label);
+    NaN scores pass every bound. And the bound is tight: a score whose
+    key's score bits equal the k-th key's is never dropped."""
+    rng = np.random.default_rng(shift * 16 + idx_bits)
+    n_pad = 1 << idx_bits
+    scores = _probe_scores(rng)
+    rows = rng.integers(0, n_pad, scores.size)
+    keys = _packed(scores, rows, n_pad, idx_bits, shift)
+    keep = ~((1 << idx_bits) - 1)
+    kths = [-(1 << 31), *rng.choice(keys, 600, replace=False).tolist(),
+            *keys[np.isin(scores, scores[-33:]) | ~np.isfinite(scores)].tolist()]
+    for kth in kths:
+        bound = score_bound(int(kth), keep, shift)
+        edge = np.array([bound, np.nextafter(bound, np.float32(np.inf)),
+                         np.nextafter(bound, np.float32(-np.inf))], np.float32)
+        probe = np.concatenate([scores, edge])
+        pkeys = np.concatenate([keys, _packed(edge, np.zeros(3, np.int64), n_pad, idx_bits,
+                                              shift)])
+        with np.errstate(invalid="ignore"):
+            dropped = probe < bound
+        assert not (dropped & (pkeys > kth)).any(), (kth, bound)
+        assert not (dropped & ((pkeys & keep) == (kth & keep))).any(), (kth, bound)
+        assert not dropped[np.isnan(probe)].any()
+    assert np.isneginf(score_bound(-(1 << 31), keep, shift))

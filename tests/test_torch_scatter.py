@@ -161,3 +161,179 @@ def test_predicate_and_device_checks():
         scatter_add_rows(torch.from_numpy(dy), torch.from_numpy(idx)[:, :5], 10)
     with pytest.raises(ValueError, match="do not match"):
         scatter_stage_tail_rows(u, w[:, :5], am, idx3)
+
+
+# The tail kernel's tile route (csrc/scatter_rows.cu::scatter_tail_tile_kernel)
+# modelled block by block: a block owns element b and a tile of qt queries,
+# whose q * k + j entries are contiguous in idx; it sorts them by target row
+# (a counting sort over the rows' span: histogram, ranks, exclusive scan),
+# packs each as (row - lo) << 16 | q_local << 7 | j, and each of its SLICES
+# half-warps walks an equal slice of the sorted entries, summing a row's
+# entries, (am == j ? u : 0) + w, and adding the sum into the zeroed
+# outputs where the row changes (a row two slices share is added twice),
+# with the run's length into the count. THREADS and SLICES are the kernel's
+# kTileThreads and kTileSlices.
+THREADS, SLICES = 512, 32
+
+
+def _entry_walk(n_entries, k):
+    """The (entry, q, j) triples the kernel's threads visit: thread t starts
+    at entry t with q = t // k, j = t % k, then steps by THREADS entries,
+    advancing q by THREADS // k and j by THREADS % k (carrying into q)."""
+    dq, dj = divmod(THREADS, k)
+    e = np.arange(THREADS)
+    q, j = e // k, e % k
+    out = []
+    while (e < n_entries).any():
+        live = e < n_entries
+        out.append((e[live], q[live], j[live]))
+        e, q, j = e + THREADS, q + dq, j + dj
+        q, j = np.where(j >= k, q + 1, q), np.where(j >= k, j - k, j)
+    return [np.concatenate(t) for t in zip(*out)] if out else [np.zeros(0, int)] * 3
+
+
+def _tiled_tail(u, w, am, idx, qt):
+    """The tile route's blocks in plain PyTorch (float32 sums in the walk's
+    order; the kernel's ranks within a row follow its atomics, here the
+    entries' order)."""
+    b, n, c = u.shape
+    k = idx.shape[-1]
+    sums, count = torch.zeros((b, n, c)), torch.zeros((b, n))
+    for bb in range(b):
+        for q0 in range(0, n, qt):
+            n_entries = min(qt, n - q0) * k
+            e, q, j = (torch.from_numpy(a) for a in _entry_walk(n_entries, k))
+            assert torch.equal(e.sort().values, torch.arange(n_entries))
+            assert torch.equal(e, q * k + j)  # the walk visits each entry once
+            t = idx[bb, q0:q0 + qt].reshape(-1).long().clamp(0, n - 1)
+            lo, hi = int(t.min()), int(t.max())
+            hist = torch.bincount(t - lo, minlength=hi - lo + 1)
+            offsets = torch.cumsum(hist, 0) - hist  # the exclusive scan
+            rank = torch.zeros(n_entries, dtype=torch.long)
+            seen = torch.zeros(hi - lo + 1, dtype=torch.long)
+            for ee in e.tolist():  # the histogram's atomics hand out the ranks
+                rank[ee] = seen[t[ee] - lo]
+                seen[t[ee] - lo] += 1
+            packed = torch.empty(n_entries, dtype=torch.long)
+            packed[offsets[t[e] - lo] + rank[e]] = (t[e] - lo) << 16 | q << 7 | j
+            per = -(-n_entries // SLICES)
+            for p0 in range(0, n_entries, per):
+                cur, run, acc = -1, 0, None
+                for v in packed[p0:min(p0 + per, n_entries)].tolist():
+                    r, ql, jj = v >> 16, (v >> 7) & 511, v & 127
+                    if r != cur:
+                        if cur >= 0:
+                            sums[bb, lo + cur] += acc
+                            count[bb, lo + cur] += run
+                        cur, run, acc = r, 0, torch.zeros(c)
+                    run += 1
+                    qq = q0 + ql
+                    acc += torch.where(am[bb, qq].long() == jj, u[bb, qq], 0.0) + w[bb, qq]
+                if cur >= 0:
+                    sums[bb, lo + cur] += acc
+                    count[bb, lo + cur] += run
+    return sums, count
+
+
+def _assert_sums_close(got, want, u, w, am, idx, count):
+    """Within 1e-5 (absolute and relative), or where a row takes many
+    entries (the clamped rows 0 and N-1 take ~8x the others) within twice
+    the recursive-summation bound (hits - 1) * 2^-24 * sum |term| of each
+    of two sums of the same terms in different orders."""
+    mag = scatter_stage_tail_rows_plain(u.abs(), w.abs(), am, idx)[0]
+    bound = 2 * count[..., None] * 2.0 ** -24 * mag
+    err = (got - want).abs()
+    assert (err <= torch.maximum(1e-5 + 1e-5 * want.abs(), bound)).all()
+
+
+_JAX_TAIL = {}
+
+
+@pytest.mark.parametrize("k", [1, 20, 30])
+@pytest.mark.parametrize("qt", [1, 5, 41])
+def test_tail_tile_model_matches_jax_kernel(qt, k):
+    """Tiles of 1, 5 and 41 (= N: one tile) queries, every tile's sort and
+    the half-warps' slices with their flushes, the count, indices in [-7, N+7)
+    clamped, C=9: the model against the plain version and the JAX kernel
+    (interpret mode, on the clamped indices)."""
+    b, n, c = 2, 41, 9
+    rng = np.random.default_rng(k)
+    u, w = rng.standard_normal((2, b, n, c)).astype(np.float32)
+    am = rng.integers(-1, k, (b, n, c)).astype(np.int8)
+    idx = rng.integers(-7, n + 7, (b, n, k)).astype(np.int32)
+    if k > 1:
+        idx[:, ::3, 1] = idx[:, ::3, 0]  # duplicate targets within a query too
+    t = [torch.from_numpy(a) for a in (u, w, am, idx)]
+    sums, count = _tiled_tail(*t, qt)
+    want_sums, want_count = scatter_stage_tail_rows_plain(*t)
+    assert torch.equal(count, want_count)
+    _assert_sums_close(sums, want_sums, *t, count)
+    if k not in _JAX_TAIL:
+        _JAX_TAIL[k] = [torch.tensor(a) for a in _jax_tail(u, w, am, np.clip(idx, 0, n - 1), k)]
+    assert torch.equal(count, _JAX_TAIL[k][1])
+    _assert_sums_close(sums, _JAX_TAIL[k][0], *t, count)
+
+
+@pytest.mark.parametrize("n_entries, k", [(4080, 30), (8192, 1), (4064, 127), (3, 1), (0, 7)])
+def test_tail_entry_walk(n_entries, k):
+    """The kernel's running (q, j) of each thread stays q * k + j = e over a
+    whole tile, at k up to the int8 limit."""
+    e, q, j = _entry_walk(n_entries, k)
+    assert np.array_equal(np.sort(e), np.arange(n_entries))
+    assert np.array_equal(q * k + j, e) and (j < k).all()
+
+
+def test_tail_entry_packing_at_its_limits():
+    """A sorted entry's row (< 32768 = TAIL_MAX_ROWS), tile query (< 512 =
+    TAIL_MAX_QUERIES) and slot (< 128) come back from its int32."""
+    from dgcnn_tpu_torch.kernels.scatter_rows import TAIL_MAX_QUERIES, TAIL_MAX_ROWS
+
+    for r, q, j in ((TAIL_MAX_ROWS - 1, TAIL_MAX_QUERIES - 1, 126), (0, 0, 0), (1, 511, 1)):
+        v = np.int32(r << 16 | q << 7 | j)
+        assert v >= 0 and (int(v) >> 16, (int(v) >> 7) & 511, int(v) & 127) == (r, q, j)
+
+
+BUDGET = 232448
+
+
+@pytest.mark.parametrize("b, n, k, c, qt", [
+    (8, 7000, 30, 64, 68),     # the train step's stage 3: 2040 entries a tile, 83 KB
+    (8, 7000, 20, 64, 102),
+    (8, 7000, 127, 64, 16),
+    (8, 7000, 1, 64, 212),     # 424 queries take 272 KB: halved once
+    (8, 7000, 30, 1, 68),
+    (1, 7000, 30, 64, 53),     # one cloud: 133 tiles of 53 queries
+    (1, 1001, 20, 64, 7),
+    (16, 7000, 1, 16, 512),    # at most 512 queries a tile
+    (8, 7000, 30, 256, 68),    # wide rows: 201 KB
+    (8, 7000, 30, 512, 34),    # ... halved until the tile fits
+    (132, 100, 30, 64, 68),
+    (132, 50, 30, 64, 50),     # one tile a cloud
+    (1, 1, 1, 1, 1),
+    (8, 32768, 30, 64, 68),    # the most rows a tile's entry packs
+    (8, 32768, 30, 256, 34),
+    (8, 32769, 30, 64, 0),     # ... and past them the global route
+    (1, 60000, 30, 64, 0),
+])
+def test_tail_plan_edges(b, n, k, c, qt):
+    from dgcnn_tpu_torch.kernels.scatter_rows import tail_plan, tile_smem_bytes
+
+    assert tail_plan(b, n, k, c) == qt
+    if qt:
+        assert qt * k <= 2048 and tile_smem_bytes(n, k, c, qt) <= BUDGET
+        assert qt == min(512, 2048 // k, n, max(1, b * n // 132)) \
+            or tile_smem_bytes(n, k, c, 2 * qt) > BUDGET
+
+
+def test_tail_plan_budget_and_entries():
+    from dgcnn_tpu_torch.kernels.scatter_rows import tail_plan, tile_smem_bytes
+
+    need = tile_smem_bytes(7000, 30, 64, 68)
+    assert need == 4 * (7000 + 2 * 2040) + 9 * 68 * 64
+    assert tail_plan(8, 7000, 30, 64, budget=need) == 68
+    assert tail_plan(8, 7000, 30, 64, budget=need - 1) == 34
+    assert tail_plan(8, 7000, 30, 64, budget=4 * 7000 + 8) == 0  # not one query fits
+    assert tail_plan(8, 7000, 30, 64, entries=4096) == 136
+    assert tail_plan(8, 7000, 30, 64, entries=8192) == 136  # 273 queries take 245 KB
+    assert tail_plan(8, 7000, 30, 64, entries=1024) == 34
+    assert tile_smem_bytes(7001, 1, 3, 1) == 4 * 7004 + 27  # the int arrays end 16-byte aligned
