@@ -92,9 +92,10 @@ operands with FP32 results, the stage kernel's tensor-core ``bf16_mm``
 mode) runs in phase 2 (the bf16 stage kernel against its plain version on
 every ``stage_cases`` case, within ``stage_bf16_tolerance``, the bound on
 two FP32 sum orders of the same exact bf16 products; timed by
-``cuda_ms_many`` beside the FP32 stage kernel, with cuBLAS's bf16 GEMM
-with an FP32 output on the bare (B*N*k, 64) x (64, 64) product as a
-ceiling), phase 3 (one tile served: two bf16 stage launches per forward,
+``cuda_ms_many`` beside the FP32 stage kernel and the extrema, with
+cuBLAS's bf16 GEMM with an FP32 output on the bare (B*N*k, 64) x (64, 64)
+product as a ceiling; its row of the kernels' line carries its status,
+redesigned, and its launch geometry), phase 3 (one tile served: two bf16 stage launches per forward,
 no FP32 stage launch), phase 5, phase 6 (against the CPU plain bf16
 forward, probabilities within 1e-3; its argmax agreement with the FP32
 forward and both times) and phase 8 (``--eval 1 --compute_dtype
@@ -922,7 +923,8 @@ def phase_fused(dev) -> list:
 
     from dgcnn_tpu_torch.kernels.edgeconv_fused import (
         edgeconv_fused_extrema, edgeconv_fused_extrema_plain, edgeconv_fused_stage,
-        edgeconv_fused_stage_bf16, edgeconv_fused_stage_plain, stage_bf16_tolerance)
+        edgeconv_fused_stage_bf16, edgeconv_fused_stage_plain, launch_geometry_bf16,
+        stage_bf16_tolerance)
     from dgcnn_tpu_torch.ops.matmul import bf16_route
 
     diag = start_l2_diag(os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
@@ -1003,10 +1005,13 @@ def phase_fused(dev) -> list:
     del x, xb
     log(f"bare (B*N*k, 64) x (64, 64) product: cuBLAS FP32 {ceil['cublas_f32_ms']:.4f} ms, "
         f"bf16 with an FP32 output {ceil['cublas_bf16_ms']} ms")
+    # its launch: warps a block and a contiguous range of queries a block
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     records.append({"name": "edgeconv_fused_stage_bf16",
                     "max_abs_err": max(r["max_abs_err"] for r in cases),
                     "ms": cases[0]["ms"], "plain_ms": cases[0]["plain_ms"],
-                    "f32_ms": records[0]["ms"], **ceil, "cases": cases})
+                    "f32_ms": records[0]["ms"], **ceil,
+                    "geometry": launch_geometry_bf16(B, N, K, sms), "cases": cases})
     return records
 
 
@@ -2383,7 +2388,9 @@ def main() -> int:
     # product as a ceiling, the gather's L2 bound, the forward's stage-3 case
     bf_row = next(r for r in kernels if r["name"] == "edgeconv_fused_stage_bf16")
     bf_nbytes = bnc4 * (3 * 64 + K) + 4.0 * (64 * 64 + 4 * 64)
-    bf_row.update({"mode": "bf16_mm", "f32_ms": fused[2]["f32_ms"],
+    bf_row.update({"mode": "bf16_mm", "status": "redesigned (ROADMAP R13)",
+                   "geometry": fused[2]["geometry"], "f32_ms": fused[2]["f32_ms"],
+                   "extrema_ms": fused[1]["ms"],
                    "bounds_ms": {"bytes": bf_nbytes / HBM_BYTES_PER_S * 1e3,
                                  "operations": 2.0 * B * N * K * 64 * 64 / BF16_FLOP_PER_S * 1e3,
                                  "l2_gather": l2["ms"]},

@@ -49,7 +49,7 @@ SIGNATURES = {
     "dgcnn_edgeconv_stage": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                              _I, _I, _I, _P),
     "dgcnn_edgeconv_stage_bf16": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                                  _I, _I, _I, _P),
+                                  _I, _I, _P),
     "dgcnn_edgeconv_extrema": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "dgcnn_scatter_add_rows": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     "dgcnn_scatter_stage_tail": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),

@@ -99,37 +99,66 @@
 // holds, ~0.075 ms at the L2 read rate chip_smoke.py measures (5.7 TB/s):
 // the practical ceiling, far above the product's bound.
 //
-// Design: the FP32 kernel's warps, units, cp.async staging and persistent
-// grid, with the product on the tensor cores (mma.sync m16n8k16 bf16 with
-// FP32 accumulation; wgmma and TMA are not used):
-// * W2 is held once per block in shared memory as bf16, transposed
-//   (output channel major, rows of 72 bf16 = 144 bytes, so ldmatrix's
-//   eight rows of a matrix fall in distinct bank groups), its columns
-//   negated where BN_b's scale is negative (exact in bf16);
-// * the transform applies bvec, BN_a and the LeakyReLU in FP32 (one pass,
-//   as the FP32 kernel), rounds with __float2bfloat16_rn, writes the bf16 row
-//   over the first 128 bytes of its own 272-byte staged row (each half of
-//   the tile read into registers before it is overwritten): rows 68 words
-//   apart keep ldmatrix free of bank conflicts, and no extra shared memory
-//   is needed, so 12 warps with 2 buffers fit (224,640 bytes);
-// * a unit of 32 rows is 2 m-tiles x 8 n-tiles x 4 k-steps = 64 mma, its
-//   fragments loaded by ldmatrix.x4 (8 for the rows, 16 for W2);
-// * the epilogue keeps the FP32 kernel's max-before-BN_b rule (above):
-//   lane (g, t) = (lane / 4, lane % 4) holds rows g, g + 8, g + 16, g + 24
-//   of channels 8n + 2t, 8n + 2t + 1 (n = 0..7); its running max over
-//   rows stays in registers across units, is reduced over g by three
-//   shuffles at the query's last unit, and lane (g, t) writes channels
-//   8g + 2t, 8g + 2t + 1. A lane whose 16 channels are not all regular
-//   applies BN_b and the LeakyReLU to every row before the max.
-// The launcher takes 1..12 warps and 1..2 buffers, as the FP32 kernel's
-// (12 and 2 shipped; on the H100 1 buffer is as fast, 8 or 10 warps 8-10%
-// slower: scripts/torch_edgeconv_bf16.py --variants).
+// The first design was the FP32 kernel's frame (warps walking queries a
+// grid apart, cp.async staging past L1, a transform pass in shared memory,
+// ldmatrix fragments) with the product on the tensor cores: 0.120-0.130 ms,
+// 1.6x the gather's L2 ceiling. It was built for a product that takes 90%
+// of the FP32 kernel's time; on the tensor cores the gather sets the pace,
+// and that frame read every row from L2 (no two warps of an SM on
+// neighbouring queries, copies that skip L1, 224 KB of shared memory
+// leaving L1 none). This design is built around the gather:
+// * the product is D[c][r] = sum_d W2[d][c] e[r][d] by mma.sync m16n8k16
+//   (bf16, FP32 accumulation): W2^T the A operand (4 m-tiles of output
+//   channels), the rows the B operand (n-tiles of 8 rows), k-steps 0..3
+//   ascending from a zero accumulator, the first design's chain per output
+//   (the same products at the same k positions): the outputs are its
+//   outputs bit for bit. Each lane holds W2^T's fragments (64 registers,
+//   rounded to bf16, negated where flipped) for the whole kernel, so the
+//   kernel takes no shared memory;
+// * lane (g, t) = (lane / 4, lane % 4) needs, of row g of an n-tile,
+//   channels 16s + 2t, +1 and 16s + 2t + 8, +9 (s = 0..3): eight 8-byte
+//   loads, a warp's load covering eight rows' 32-byte sectors whole. The
+//   lane applies bvec, BN_a (fmaf) and the LeakyReLU in FP32 to what it
+//   loaded and packs its B fragment with __floats2bfloat162_rn: no
+//   staging, no transform pass, no ldmatrix;
+// * rows come by the read-only path through L1, which has all of the SM's
+//   on-chip memory (carveout 0); each block takes a contiguous range of
+//   queries, its warps neighbouring queries (q, q + warps, ...), so that
+//   rows neighbouring queries share are read from L2 once per SM, as in the
+//   extrema kernel; the indices and bvec, read once, are streamed past L1;
+// * loads run a unit ahead: the next unit's rows of n-tile j go into the
+//   registers n-tile j of this unit was just read from, its bvec into
+//   those of this unit's bvec after their last use; the indices are loaded
+//   two units ahead. The loop body is one straight line (loads past a
+//   warp's last unit read rows that exist; a query's cloud is found by a
+//   multiply, not a division; the epilogue's reduction runs at every unit,
+//   only its stores predicated), so that the compiler overlaps one n-tile's
+//   products with the next one's loads and activation: on the H100,
+//   versions with branches between the n-tiles (skipping n-tiles of padding
+//   alone, the per-row epilogue below) or a division in the loop were
+//   markedly slower. Units are 32 rows, as in the first design;
+// * epilogue: lane (g, t) keeps the running max of rows 2t, 2t + 1 of each
+//   n-tile for channels 16m + g and 16m + g + 8 (m = 0..3), with the FP32
+//   kernel's max-before-BN_b rule when all 64 channels are regular (a
+//   warp-uniform choice between two instances of the loop; the other
+//   applies BN_b and the LeakyReLU to every row before the max, the same
+//   values for the regular channels); two shuffles reduce over t, and at a
+//   query's last unit lane (g, t) writes channels 16t + g and 16t + g + 8.
+// The launcher takes 1..8 warps a block (8 shipped: 255 registers a thread
+// hold one block an SM) and `per` queries a block, each block a contiguous
+// range (kernels/edgeconv_fused.py::launch_geometry_bf16: one block an SM).
+// Resources (nvcc -Xptxas -v, sm_90a): 254 registers, no spill, no shared
+// memory; `cuobjdump -sass`: 64 HMMA in each of the loop's two instances,
+// no LDSM, no GMMA.
 //
-// Resources (nvcc -Xptxas -v, sm_90a, CUDA 12.9): 162 registers, no spill;
-// `cuobjdump -sass`: 64 HMMA (the tensor cores' mma.sync, no GMMA) and 24
-// LDSM a unit. On the H100 (700 W) 0.120-0.126 ms at B=8, N=7000, k=30,
-// the FP32 kernel's 0.39 beside it (chip_smoke.py).
-//
+// What holds it (patched builds, scripts/exp_edgeconv_stage_variants.py
+// --bf16; times in PERF.md, row 12): mma.sync's rate on Hopper, far below
+// the dense bf16 peak (the products alone take about 0.04 ms, and half of
+// them take as much off the kernel), and the activation's FP32 work (about
+// 0.05 ms alone), which overlap poorly at two warps a scheduler. Designs on
+// wgmma (the rows activated into shared memory, the product asynchronous,
+// W2 split over a warpgroup) made the product cheap but paid a barrier and
+// a tile's round trip per unit, and were no faster.
 // Extrema design. The kernel only gathers and compares, so what bounds it
 // is the gather: B*N*k rows of 256 bytes (430 MB at B=8, N=7000, k=30) from
 // a table (1.8 MB a cloud) that L2 holds. A warp takes a query, lane l its
@@ -168,9 +197,7 @@ constexpr int kRowStride4 = kRowStride / 4;
 constexpr int kUnitFloats = (kUnitRows + 1) * kRowStride;  // 32 rows + bvec
 constexpr int kMaxStageWarps = 12;
 constexpr int kMaxBuffers = 2;
-// bf16 stage kernel
-constexpr int kRowBytes = 4 * kRowStride;  // a staged row; its bf16 copy takes the first 128
-constexpr int kW2Ld = kC + 8;              // a row of W2^T in shared memory, in bf16 (144 bytes)
+constexpr int kBfWarps = 8;  // bf16 stage kernel: warps a block at most, one block an SM
 constexpr int kXWarps = 32;  // extrema kernel: warps a block, one block an SM
 
 // LeakyReLU, slope 0.2: the same bits as v >= 0 ? v : 0.2f * v (0.2f * v
@@ -214,11 +241,14 @@ struct Unit {
 };
 
 // The rows of unit (q, c): lane l loads the (clamped) neighbour index of
-// row 32c + l, past k the last neighbour's.
+// row 32c + l, past k the last neighbour's. kStream: past L1 (the indices
+// are read once; L1 is left to the gathered rows).
+template <bool kStream = false>
 __device__ __forceinline__ int unit_index(const int* __restrict__ idx, int q, int c, int K,
                                           int N, int lane) {
   const int j = min(c * kUnitRows + lane, K - 1);
-  const int nb = __ldg(idx + (size_t)q * K + j);
+  const int* p = idx + (size_t)q * K + j;
+  const int nb = kStream ? __ldcs(p) : __ldg(p);
   return min(max(nb, 0), N - 1);
 }
 
@@ -389,25 +419,6 @@ edgeconv_stage_kernel(const float* __restrict__ table,  // (B, N, 64)
   cp_async_wait<0>();  // no copy outlives the block
 }
 
-size_t bf16_stage_smem_bytes(int warps, int nbuf) {
-  return sizeof(__nv_bfloat16) * (size_t)kC * kW2Ld +
-         sizeof(float) * (size_t)warps * nbuf * kUnitFloats;
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// Four 8x8 bf16 matrices from shared memory: lanes 8i .. 8i + 7 give the
-// row addresses of matrix i, and r[i] of lane l holds its row l / 4,
-// columns 2 (l % 4) and 2 (l % 4) + 1 (the mma fragments' layout).
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* row) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(row))
-               : "memory");
-}
-
 // d += a b on the tensor cores: a 16 x 16 bf16 (row major), b 16 x 8 bf16
 // (column major), d 16 x 8 FP32.
 __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
@@ -424,7 +435,169 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-__global__ void __launch_bounds__(kLanes * kMaxStageWarps, 1)
+// Lane (g, t)'s share of a 64-channel row for the mma fragments: for each
+// k-step s (channels 16s .. 16s + 15), channels 16s + 2t, 16s + 2t + 1
+// (p[s][0]) and 16s + 2t + 8, 16s + 2t + 9 (p[s][1]), by the read-only path
+// (kStream: past L1, for rows read once).
+template <bool kStream = false>
+__device__ __forceinline__ void load_share(float2 (&p)[4][2], const float* __restrict__ row,
+                                           int t) {
+  const float2* r2 = reinterpret_cast<const float2*>(row) + t;
+#pragma unroll
+  for (int s = 0; s < 4; ++s) {
+    p[s][0] = kStream ? __ldcs(r2 + 8 * s) : __ldg(r2 + 8 * s);
+    p[s][1] = kStream ? __ldcs(r2 + 8 * s + 4) : __ldg(r2 + 8 * s + 4);
+  }
+}
+
+// bvec + BN_a (one FMA) + LeakyReLU in FP32 on two channels, rounded to
+// bf16 and packed: one register of a B fragment
+__device__ __forceinline__ uint32_t activate(float2 v, float2 b, float2 s, float2 h) {
+  return pack_bf16(lrelu(fmaf(__fadd_rn(v.x, b.x), s.x, h.x)),
+                   lrelu(fmaf(__fadd_rn(v.y, b.y), s.y, h.y)));
+}
+
+// A global read the compiler does not hoist out of the loop (the
+// epilogue's rare per-row path would otherwise hold its BN_b vectors in
+// registers for the whole kernel)
+__device__ __forceinline__ float ld_in_place(const float* p) {
+  float v;
+  asm volatile("ld.global.nc.f32 %0, [%1];\n" : "=f"(v) : "l"(p));
+  return v;
+}
+
+// The unit after (q, c) in a warp's walk: the query's next 32 rows, else
+// the warp's next query, `step` queries on.
+__device__ __forceinline__ void next_unit(int& q, int& c, int nch, int step) {
+  if (++c == nch) {
+    c = 0;
+    q += step;
+  }
+}
+
+// What the bf16 stage kernel's lane holds for the whole kernel: W2^T's A
+// fragments (a[m][s]: output channels 16m + g, 16m + g + 8 at input
+// channels 16s + 2t, +1, +8, +9, rounded to bf16, negated where flipped),
+// BN_a at its 16 input channels, BN_b of the 2 channels it writes.
+struct Bf16Lane {
+  uint32_t a[4][4][4];
+  float2 sa[4][2], ta[4][2];
+  float osc[2], osh[2];
+  int g, t, lane;
+};
+
+// A warp's walk over its queries q, q + step, ... below hi, a unit of 32
+// rows at a time (k padded to a multiple of 32 by repeating the last
+// neighbour, which leaves the max unchanged). kMaxFirst: every channel of
+// BN_b is regular, so the running max is taken before BN_b; else BN_b and
+// the LeakyReLU go on every row before the max. The loop body is one
+// straight line (no branch between its n-tiles): the loads run a unit
+// ahead, into the registers their n-tile was read from, on valid rows
+// even past the warp's last unit.
+template <bool kMaxFirst>
+__device__ __forceinline__ void bf16_walk(const Bf16Lane& L, const float* __restrict__ table,
+                                          const int* __restrict__ idx,
+                                          const float* __restrict__ bvec,
+                                          const float* __restrict__ sb,
+                                          const float* __restrict__ tb, float* __restrict__ out,
+                                          int N, int K, int q, int hi, int step) {
+  const int g = L.g, t = L.t, lane = L.lane;
+  const int nch = (K + kUnitRows - 1) / kUnitRows;
+  // unit (q, c): its rows in x and its query's bvec in bv (in flight);
+  // unit (q1, c1): its indices in nb1 (of query hi - 1 past the walk's end)
+  int c = 0, q1 = q, c1 = 0;
+  next_unit(q1, c1, nch, step);
+  float2 x[4][4][2];  // n-tile j: lane (g, t)'s share of row 8j + g of the unit
+  float2 bv[4][2];    // the unit's query's bvec at the lane's input channels
+  {
+    const int nb = unit_index<true>(idx, q, 0, K, N, lane);
+    const float* tab = table + (size_t)(q / N) * N * kC;
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      load_share(x[j], tab + (size_t)__shfl_sync(kFull, nb, 8 * j + g) * kC, t);
+    load_share<true>(bv, bvec + (size_t)q * kC, t);
+  }
+  int nb1 = unit_index<true>(idx, min(q1, hi - 1), c1, K, N, lane);
+  const unsigned long long nmagic = ~0ull / (unsigned)N + 1;  // ceil(2^64 / N) for N > 1
+
+  float mx[4][2];  // running max over rows of channels 16m + g + 8h
+#pragma unroll
+  for (int m = 0; m < 4; ++m) mx[m][0] = mx[m][1] = -INFINITY;
+  for (;;) {
+    const bool more = q1 < hi;
+    const int qv = more ? q1 : q;  // the next unit's query, else this one's: rows that exist
+    int q2 = q1, c2 = c1;          // the unit after next: its indices
+    next_unit(q2, c2, nch, step);
+    const int nb2 = unit_index<true>(idx, min(q2, hi - 1), c2, K, N, lane);
+    // qv's cloud, qv / N by a multiply (exact for qv < 2^32)
+    const size_t cloud = N > 1 ? __umul64hi((unsigned long long)qv, nmagic) : qv;
+    const float* tab1 = table + cloud * N * kC;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      uint32_t b[4][2];
+#pragma unroll
+      for (int s = 0; s < 4; ++s) {
+        b[s][0] = activate(x[j][s][0], bv[s][0], L.sa[s][0], L.ta[s][0]);
+        b[s][1] = activate(x[j][s][1], bv[s][1], L.sa[s][1], L.ta[s][1]);
+      }
+      if (j == 3) load_share<true>(bv, bvec + (size_t)qv * kC, t);  // the next unit's bvec
+      // the next unit's n-tile j, into the registers this one's was read from
+      load_share(x[j], tab1 + (size_t)__shfl_sync(kFull, nb1, 8 * j + g) * kC, t);
+      float d[4][4];  // output channels 16m + g (d[m][0..1]), + 8 (d[m][2..3]); rows 2t, 2t + 1
+#pragma unroll
+      for (int m = 0; m < 4; ++m) {
+        d[m][0] = d[m][1] = d[m][2] = d[m][3] = 0.f;
+#pragma unroll
+        for (int s = 0; s < 4; ++s) mma_bf16(d[m], L.a[m][s], b[s][0], b[s][1]);
+      }
+#pragma unroll
+      for (int m = 0; m < 4; ++m)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float v0 = d[m][2 * h], v1 = d[m][2 * h + 1];
+          if (!kMaxFirst) {  // BN_b's vectors read where they are used: a rare path
+            const int ch = 16 * m + g + 8 * h;
+            const float s0 = ld_in_place(sb + ch), sh = ld_in_place(tb + ch);
+            const float sc = regular(s0, sh) && s0 < 0.f ? -s0 : s0;  // as flipped
+            v0 = lrelu(affine(v0, sc, sh));
+            v1 = lrelu(affine(v1, sc, sh));
+          }
+          mx[m][h] = fmaxf(mx[m][h], fmaxf(v0, v1));
+        }
+    }
+    // the max over t (lanes 4g .. 4g + 3) at every unit, which leaves a
+    // running max as it is (max is idempotent), so that the loop has no
+    // branch; at the query's last unit the outputs are written and the
+    // running max reset
+#pragma unroll
+    for (int m = 0; m < 4; ++m)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        mx[m][h] = fmaxf(mx[m][h], __shfl_xor_sync(kFull, mx[m][h], 1));
+        mx[m][h] = fmaxf(mx[m][h], __shfl_xor_sync(kFull, mx[m][h], 2));
+      }
+    float o0 = mx[0][0], o1 = mx[0][1];
+#pragma unroll
+    for (int m = 1; m < 4; ++m)
+      if (m == t) o0 = mx[m][0], o1 = mx[m][1];
+    if (kMaxFirst)
+      o0 = lrelu(affine(o0, L.osc[0], L.osh[0])), o1 = lrelu(affine(o1, L.osc[1], L.osh[1]));
+    const bool last = c == nch - 1;  // the query's last unit
+    if (last) {
+      float* o = out + (size_t)q * kC + 16 * t + g;
+      o[0] = o0;
+      o[8] = o1;
+    }
+#pragma unroll
+    for (int m = 0; m < 4; ++m)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) mx[m][h] = last ? -INFINITY : mx[m][h];
+    if (!more) break;
+    q = q1, c = c1, q1 = q2, c1 = c2, nb1 = nb2;
+  }
+}
+
+__global__ void __launch_bounds__(kLanes * kBfWarps, 1)
 edgeconv_stage_bf16_kernel(const float* __restrict__ table,  // (B, N, 64)
                            const int* __restrict__ idx,      // (B, N, K)
                            const float* __restrict__ bvec,   // (B, N, 64)
@@ -432,162 +605,55 @@ edgeconv_stage_bf16_kernel(const float* __restrict__ table,  // (B, N, 64)
                            const float* __restrict__ sa, const float* __restrict__ ta,
                            const float* __restrict__ sb, const float* __restrict__ tb,
                            float* __restrict__ out,          // (B, N, 64)
-                           int B, int N, int K, int nbuf) {
-  extern __shared__ float4 smem4[];
-  // W2^T in bf16: row c holds W2[:, c], negated where flipped(c)
-  __nv_bfloat16* w2s = reinterpret_cast<__nv_bfloat16*>(smem4);
+                           int B, int N, int K, int per) {
   const int warps = blockDim.x / kLanes;
   const int lane = threadIdx.x % kLanes, warp = threadIdx.x / kLanes;
-  float* bufs = reinterpret_cast<float*>(w2s + kC * kW2Ld) + warp * nbuf * kUnitFloats;
-
-  for (int t = threadIdx.x; t < kC * kC; t += blockDim.x) {
-    const int d = t / kC, c = t % kC;
-    const float w = w2[t];
-    w2s[c * kW2Ld + d] = __float2bfloat16_rn(flipped(sb, tb, c) ? -w : w);
-  }
-
-  // transform: lane owns input channels 4 * c4 .. 4 * c4 + 3 of rows half + 2i
-  const int c4 = lane & 15, half = lane >> 4;
-  const float4 sa4 = reinterpret_cast<const float4*>(sa)[c4];
-  const float4 ta4 = reinterpret_cast<const float4*>(ta)[c4];
-  // product: fragment rows g, g + 8 of each m-tile, channels 8n + 2t + j
   const int g = lane >> 2, t = lane & 3;
+  const int rows = B * N;  // at most INT_MAX / 8 (the launcher): q + 2 * warps stays an int
+  const int lo = blockIdx.x * per, hi = min(rows, lo + per);  // this block's queries
+  const int q = lo + warp;  // the warp's queries: q, q + warps, ... below hi
+  if (q >= hi) return;  // the kernel has no barrier
+
+  Bf16Lane L;
+  L.g = g, L.t = t, L.lane = lane;
+#pragma unroll
+  for (int m = 0; m < 4; ++m) {
+    const int c0 = 16 * m + g, c1 = c0 + 8;
+    const bool f0 = flipped(sb, tb, c0), f1 = flipped(sb, tb, c1);
+    auto w = [&](int d, int c, bool neg) {
+      const float v = __ldg(w2 + d * kC + c);
+      return neg ? -v : v;
+    };
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+      const int d = 16 * s + 2 * t;
+      L.a[m][s][0] = pack_bf16(w(d, c0, f0), w(d + 1, c0, f0));
+      L.a[m][s][1] = pack_bf16(w(d, c1, f1), w(d + 1, c1, f1));
+      L.a[m][s][2] = pack_bf16(w(d + 8, c0, f0), w(d + 9, c0, f0));
+      L.a[m][s][3] = pack_bf16(w(d + 8, c1, f1), w(d + 9, c1, f1));
+    }
+  }
+  load_share(L.sa, sa, t);
+  load_share(L.ta, ta, t);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {  // the two channels this lane writes, 16t + g + 8h
+    const int ch = 16 * t + g + 8 * h;
+    L.osc[h] = flipped(sb, tb, ch) ? -sb[ch] : sb[ch];
+    L.osh[h] = tb[ch];
+  }
+  // the lane's 8 channels 16m + g + 8h regular; the warp's 64 all regular
   bool fast = true;
 #pragma unroll
-  for (int n = 0; n < 8; ++n)
+  for (int m = 0; m < 4; ++m)
 #pragma unroll
-    for (int j = 0; j < 2; ++j) fast = fast && regular(sb[8 * n + 2 * t + j], tb[8 * n + 2 * t + j]);
-  float osc[2], osh[2];  // BN_b of the two channels this lane writes, 8g + 2t + j
-#pragma unroll
-  for (int j = 0; j < 2; ++j) {
-    const int ch = 8 * g + 2 * t + j;
-    osc[j] = flipped(sb, tb, ch) ? -sb[ch] : sb[ch];
-    osh[j] = tb[ch];
-  }
-  // ldmatrix row addresses: the rows' (lane % 8 + 8 (lane / 8 % 2), k + 8 (lane / 16))
-  // and W2^T's (lane % 8 + 8 (lane / 16), k + 8 (lane / 8 % 2))
-  const int a_off = ((lane & 7) + ((lane >> 3) & 1) * 8) * kRowBytes + (lane >> 4) * 16;
-  const char* b_base = reinterpret_cast<const char*>(
-      w2s + ((lane & 7) + (lane >> 4) * 8) * kW2Ld + ((lane >> 3) & 1) * 8);
-  __syncthreads();
-
-  const int rows = B * N;  // at most INT_MAX / 8 (the launcher): q + 3G stays an int
-  const int G = gridDim.x * warps;
-  const int nch = (K + kUnitRows - 1) / kUnitRows;
-  Unit cur{(int)blockIdx.x * warps + warp, 0, 0};  // the unit multiplied
-  Unit st = cur;                                   // the next unit staged
-  int nb = st.q < rows ? unit_index(idx, st.q, st.c, K, N, lane) : 0;  // st's rows
-  auto stage_next = [&]() {
-    if (st.q < rows) {
-      stage_unit(bufs + st.buf * kUnitFloats, table + (size_t)(st.q / N) * N * kC,
-                 bvec + (size_t)st.q * kC, nb, lane);
-    } else {
-      cp_async_commit();  // an empty group keeps the count of groups in flight
+    for (int h = 0; h < 2; ++h) {
+      const int ch = 16 * m + g + 8 * h;
+      fast = fast && regular(sb[ch], tb[ch]);
     }
-    st.advance(nch, G, nbuf);
-    nb = st.q < rows ? unit_index(idx, st.q, st.c, K, N, lane) : 0;
-  };
-  for (int s = 0; s < nbuf - 1; ++s) stage_next();  // units 0 .. nbuf - 2 in flight
-
-  float m[8][2];  // running max over rows of channels 8n + 2t + j
-#pragma unroll
-  for (int n = 0; n < 8; ++n) m[n][0] = m[n][1] = -INFINITY;
-  for (; cur.q < rows; cur.advance(nch, G, nbuf)) {
-    stage_next();  // unit cur + nbuf - 1
-    if (nbuf > 1) cp_async_wait<1>();  // unit cur + 1 may stay in flight
-    else cp_async_wait<0>();
-    __syncwarp();
-
-    float* buf = bufs + cur.buf * kUnitFloats;
-    const float4* buf4 = reinterpret_cast<const float4*>(buf);
-    char* bytes = reinterpret_cast<char*>(buf);
-    {  // bvec + BN_a (one FMA) + LeakyReLU in FP32, then bf16 over the row's first 128 bytes
-      const float4 bv = buf4[kUnitRows * kRowStride4 + c4];
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {  // rows 0..15, then 16..31
-        float4 v[8];
-#pragma unroll
-        for (int i = 0; i < 8; ++i) v[i] = buf4[(half + 2 * (8 * h + i)) * kRowStride4 + c4];
-        __syncwarp();  // these rows are read by every lane before any is overwritten
-#pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          const float ex = lrelu(fmaf(__fadd_rn(v[i].x, bv.x), sa4.x, ta4.x));
-          const float ey = lrelu(fmaf(__fadd_rn(v[i].y, bv.y), sa4.y, ta4.y));
-          const float ez = lrelu(fmaf(__fadd_rn(v[i].z, bv.z), sa4.z, ta4.z));
-          const float ew = lrelu(fmaf(__fadd_rn(v[i].w, bv.w), sa4.w, ta4.w));
-          *reinterpret_cast<uint2*>(bytes + (half + 2 * (8 * h + i)) * kRowBytes + 8 * c4) =
-              make_uint2(pack_bf16(ex, ey), pack_bf16(ez, ew));
-        }
-      }
-    }
-    __syncwarp();
-
-    float acc[2][8][4];
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int n = 0; n < 8; ++n)
-#pragma unroll
-        for (int r = 0; r < 4; ++r) acc[i][n][r] = 0.f;
-#pragma unroll
-    for (int ks = 0; ks < kC / 16; ++ks) {
-      uint32_t a0[4], a1[4];
-      ldsm_x4(a0, bytes + a_off + 32 * ks);                   // rows 0..15
-      ldsm_x4(a1, bytes + a_off + 16 * kRowBytes + 32 * ks);  // rows 16..31
-#pragma unroll
-      for (int np = 0; np < 4; ++np) {  // n-tiles 2np, 2np + 1
-        uint32_t b[4];
-        ldsm_x4(b, b_base + 2 * (16 * np * kW2Ld + 16 * ks));
-        mma_bf16(acc[0][2 * np], a0, b[0], b[1]);
-        mma_bf16(acc[1][2 * np], a1, b[0], b[1]);
-        mma_bf16(acc[0][2 * np + 1], a0, b[2], b[3]);
-        mma_bf16(acc[1][2 * np + 1], a1, b[2], b[3]);
-      }
-    }
-
-    if (fast) {
-#pragma unroll
-      for (int n = 0; n < 8; ++n)
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-          m[n][j] = fmaxf(m[n][j], fmaxf(fmaxf(acc[0][n][j], acc[0][n][2 + j]),
-                                         fmaxf(acc[1][n][j], acc[1][n][2 + j])));
-    } else {
-#pragma unroll
-      for (int n = 0; n < 8; ++n)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          const int ch = 8 * n + 2 * t + j;
-          const float sc = flipped(sb, tb, ch) ? -sb[ch] : sb[ch], sh = tb[ch];
-#pragma unroll
-          for (int i = 0; i < 2; ++i) {
-            m[n][j] = fmaxf(m[n][j], lrelu(affine(acc[i][n][j], sc, sh)));
-            m[n][j] = fmaxf(m[n][j], lrelu(affine(acc[i][n][2 + j], sc, sh)));
-          }
-        }
-    }
-    if (cur.c == nch - 1) {
-#pragma unroll
-      for (int n = 0; n < 8; ++n)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {  // over g: lanes t, t + 4, ..., t + 28
-          m[n][j] = fmaxf(m[n][j], __shfl_xor_sync(kFull, m[n][j], 4));
-          m[n][j] = fmaxf(m[n][j], __shfl_xor_sync(kFull, m[n][j], 8));
-          m[n][j] = fmaxf(m[n][j], __shfl_xor_sync(kFull, m[n][j], 16));
-        }
-      float2 o = make_float2(m[0][0], m[0][1]);
-#pragma unroll
-      for (int n = 1; n < 8; ++n)
-        if (n == g) o = make_float2(m[n][0], m[n][1]);
-      if (fast) o = make_float2(lrelu(affine(o.x, osc[0], osh[0])),
-                                lrelu(affine(o.y, osc[1], osh[1])));
-      *reinterpret_cast<float2*>(out + (size_t)cur.q * kC + 8 * g + 2 * t) = o;
-#pragma unroll
-      for (int n = 0; n < 8; ++n) m[n][0] = m[n][1] = -INFINITY;
-    }
-    __syncwarp();  // the buffer is restaged by a later iteration
-  }
-  cp_async_wait<0>();  // no copy outlives the block
+  if (__all_sync(kFull, fast))
+    bf16_walk<true>(L, table, idx, bvec, sb, tb, out, N, K, q, hi, warps);
+  else
+    bf16_walk<false>(L, table, idx, bvec, sb, tb, out, N, K, q, hi, warps);
 }
 
 // The extrema kernel: a warp per query, each block a contiguous range of
@@ -677,39 +743,27 @@ extern "C" int dgcnn_edgeconv_stage(const float* table, const int* idx,
   return cudaGetLastError();
 }
 
-// The bf16 stage kernel: the arguments and launch geometry of
-// dgcnn_edgeconv_stage. Returns a cudaError_t.
+// The bf16 stage kernel: the arguments of dgcnn_edgeconv_stage; `warps`
+// a block (1..8) and `per` queries a block, each block a contiguous range
+// (ceil(B*N / per) blocks). Returns a cudaError_t.
 extern "C" int dgcnn_edgeconv_stage_bf16(const float* table, const int* idx,
                                          const float* bvec, const float* w2,
                                          const float* sa, const float* ta,
                                          const float* sb, const float* tb,
                                          float* out, int B, int N, int K, int warps,
-                                         int nbuf, int grid, void* stream) {
-  if (K < 1 || warps < 1 || warps > kMaxStageWarps || nbuf < 1 || nbuf > kMaxBuffers ||
-      grid < 0)
-    return cudaErrorInvalidValue;
+                                         int per, void* stream) {
+  if (K < 1 || warps < 1 || warps > kBfWarps || per < 1) return cudaErrorInvalidValue;
   const long long rows = (long long)B * N;
   if (rows == 0) return cudaSuccess;
   if (rows > INT_MAX / 8) return cudaErrorInvalidValue;  // query numbers are ints
-  const size_t smem = bf16_stage_smem_bytes(warps, nbuf);
-  cudaError_t err = cudaFuncSetAttribute(
-      edgeconv_stage_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  per = (int)std::min<long long>(per, rows);
+  // all of the SM's on-chip memory as L1: the kernel takes no shared memory
+  cudaError_t err = cudaFuncSetAttribute(edgeconv_stage_bf16_kernel,
+                                         cudaFuncAttributePreferredSharedMemoryCarveout, 0);
   if (err != cudaSuccess) return err;
-  long long blocks = grid;
-  if (blocks == 0) {
-    int dev = 0, sms = 0, per_sm = 0;
-    if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
-    if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
-      return err;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, edgeconv_stage_bf16_kernel,
-                                                        kLanes * warps, smem);
-    if (err != cudaSuccess) return err;
-    blocks = (long long)std::max(per_sm, 1) * sms;
-  }
-  blocks = std::min(blocks, (rows + warps - 1) / warps);
-  edgeconv_stage_bf16_kernel<<<(unsigned)blocks, kLanes * warps, smem,
+  edgeconv_stage_bf16_kernel<<<(unsigned)((rows + per - 1) / per), kLanes * warps, 0,
                                static_cast<cudaStream_t>(stream)>>>(
-      table, idx, bvec, w2, sa, ta, sb, tb, out, B, N, K, nbuf);
+      table, idx, bvec, w2, sa, ta, sb, tb, out, B, N, K, per);
   return cudaGetLastError();
 }
 

@@ -18,9 +18,11 @@ tensors, counted in ``<wrapper>.launches`` (the bf16 kernel in
 version on CPU tensors. The plain versions build the (B, N, k, C)
 gathered tensor that the kernels never write to device memory.
 Neighbour indices are clamped to [0, N), as the unfused chain's gather
-does. :func:`launch_geometry` picks the stage kernel's warps per block and
-staging buffers; :func:`launch_stage` launches it at a given geometry;
-:func:`launch_extrema` launches the extrema kernel at a given grid.
+does. :func:`launch_geometry` picks the FP32 stage kernel's warps per block
+and staging buffers, :func:`launch_geometry_bf16` the bf16 kernel's warps
+and queries per block; :func:`launch_stage` and :func:`launch_stage_bf16`
+launch them at a given geometry; :func:`launch_extrema` launches the
+extrema kernel at a given grid.
 """
 
 from __future__ import annotations
@@ -37,12 +39,17 @@ from dgcnn_tpu_torch.ops.matmul import rounded
 _WIDTH = 64  # the kernels' table and W2 width
 UNIT_ROWS = 32  # gathered rows the stage kernel's warp multiplies at once
 _UNIT_BYTES = 4 * (UNIT_ROWS + 1) * (_WIDTH + 4)  # a staging buffer: rows + bvec
-# (warps per block, staging buffers per warp) of every launch of either
+# (warps per block, staging buffers per warp) of every launch of the FP32
 # stage kernel: 12 warps, 3 on each of the SM's 4 schedulers, the fastest
-# on the H100 (scripts/exp_edgeconv_stage_variants.py,
-# scripts/torch_edgeconv_bf16.py --variants)
+# on the H100 (scripts/exp_edgeconv_stage_variants.py)
 STAGE_GEOMETRY = (12, 2)
-_W2_BF16_BYTES = 2 * _WIDTH * (_WIDTH + 8)  # W2^T in bf16, rows of 72
+# the bf16 stage kernel's warps a block (csrc: kBfWarps): each lane holds
+# W2's fragments, 255 registers a thread, so one block of 8 warps an SM
+BF16_WARPS = 8
+# its shared memory: none (W2 in registers, the rows loaded straight into
+# the mma fragments), so L1 takes all of the SM's on-chip memory
+BF16_SMEM_BYTES = 0
+H100_SMS = 132  # the H100 SXM's SMs
 
 
 def _gathered(table, idx) -> torch.Tensor:
@@ -124,14 +131,12 @@ def _stream(dev) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
 
 
-def smem_bytes(warps: int, nbuf: int, bf16_mm: bool = False) -> int:
-    """The stage kernel's shared memory, as ``csrc/edgeconv_fused.cu::
+def smem_bytes(warps: int, nbuf: int) -> int:
+    """The FP32 stage kernel's shared memory, as ``csrc/edgeconv_fused.cu::
     stage_smem_bytes`` computes it: W2 (64 x 64) and ``nbuf`` staging
     buffers per warp, each 32 gathered rows and the query's bvec at a row
-    stride of 68 floats. ``bf16_mm``: the bf16 kernel's
-    (``bf16_stage_smem_bytes``), W2 in bf16 at rows of 72."""
-    w2_bytes = _W2_BF16_BYTES if bf16_mm else 4 * _WIDTH * _WIDTH
-    return w2_bytes + warps * nbuf * _UNIT_BYTES
+    stride of 68 floats. The bf16 kernel takes none (:data:`BF16_SMEM_BYTES`)."""
+    return 4 * _WIDTH * _WIDTH + warps * nbuf * _UNIT_BYTES
 
 
 def launch_extrema(table, idx, bvec, vectors, grid: int = 0) -> torch.Tensor:
@@ -153,36 +158,69 @@ def launch_extrema(table, idx, bvec, vectors, grid: int = 0) -> torch.Tensor:
 
 
 def launch_geometry(k: int) -> tuple[int, int]:
-    """``(warps, nbuf)`` of a stage-kernel launch for ``k`` neighbours:
+    """``(warps, nbuf)`` of an FP32 stage-kernel launch for ``k`` neighbours:
     warps per block (one query each at a time) and staging buffers per
-    warp, :data:`STAGE_GEOMETRY`. The kernels multiply 32 gathered rows
-    at a time (``k`` rows in ``ceil(k / 32)`` units), so their shared
-    memory does not grow with ``k``: every ``k >= 1`` launches."""
+    warp, :data:`STAGE_GEOMETRY`. The kernel multiplies 32 gathered rows
+    at a time (``k`` rows in ``ceil(k / 32)`` units), so its shared memory
+    does not grow with ``k``: every ``k >= 1`` launches."""
     if k < 1:
         raise ValueError(f"the fused stage needs k >= 1 neighbours, not {k}")
     return STAGE_GEOMETRY
 
 
+def launch_geometry_bf16(b: int, n: int, k: int, sms: int = H100_SMS) -> tuple[int, int]:
+    """``(warps, per)`` of a bf16 stage-kernel launch on ``b * n`` queries of
+    ``k`` neighbours on a card of ``sms`` SMs: :data:`BF16_WARPS` warps a
+    block and ``per`` queries a block, a contiguous range, so that one block
+    runs on each SM (``ceil(b * n / per)`` blocks, the last range shorter
+    where ``per`` does not divide ``b * n``). The kernel takes no shared
+    memory (:data:`BF16_SMEM_BYTES`), so no budget bounds it, and its
+    registers do not grow with ``k`` (32 rows at a time): every ``k >= 1``
+    launches."""
+    if k < 1:
+        raise ValueError(f"the fused stage needs k >= 1 neighbours, not {k}")
+    if b * n < 1 or sms < 1:
+        raise ValueError(f"no queries to launch for: b={b}, n={n}, sms={sms}")
+    return BF16_WARPS, -(-(b * n) // sms)
+
+
 def launch_stage(table, idx, bvec, w2, vectors, geometry: tuple[int, int],
-                 grid: int = 0, bf16_mm: bool = False) -> torch.Tensor:
-    """The stage kernel (``bf16_mm``: the bf16 one) on checked, contiguous
-    CUDA tensors at ``geometry`` (``(warps, nbuf)``); ``grid`` blocks, 0
-    for as many as the SMs hold at once. Not counted: the wrappers count
-    their launches."""
+                 grid: int = 0) -> torch.Tensor:
+    """The FP32 stage kernel on checked, contiguous CUDA tensors at
+    ``geometry`` (``(warps, nbuf)``); ``grid`` blocks, 0 for as many as the
+    SMs hold at once. Not counted: the wrapper counts its launches."""
     b, n, _ = table.shape
     warps, nbuf = geometry
-    # the kernels read rows, W2 and BN_a's vectors 16 bytes at a time
+    # the kernel reads rows, W2 and BN_a's vectors 16 bytes at a time
     table, bvec, w2, *vectors = (t if t.data_ptr() % 16 == 0 else t.clone()
                                  for t in (table, bvec, w2, *vectors))
     out = torch.empty((b, n, _WIDTH), dtype=torch.float32, device=table.device)
-    lib = _build.lib()
-    entry = lib.dgcnn_edgeconv_stage_bf16 if bf16_mm else lib.dgcnn_edgeconv_stage
-    err = entry(
+    err = _build.lib().dgcnn_edgeconv_stage(
         table.data_ptr(), idx.data_ptr(), bvec.data_ptr(), w2.data_ptr(),
         *(v.data_ptr() for v in vectors), out.data_ptr(), b, n, idx.shape[-1],
         warps, nbuf, grid, _stream(table.device),
     )
-    _build.check(err, "edgeconv_fused_stage_bf16" if bf16_mm else "edgeconv_fused_stage")
+    _build.check(err, "edgeconv_fused_stage")
+    return out
+
+
+def launch_stage_bf16(table, idx, bvec, w2, vectors,
+                      geometry: tuple[int, int]) -> torch.Tensor:
+    """The bf16 stage kernel on checked, contiguous CUDA tensors at
+    ``geometry`` (``(warps, per)``: warps a block, queries a block). Not
+    counted: :func:`edgeconv_fused_stage_bf16` counts its launches."""
+    b, n, _ = table.shape
+    warps, per = geometry
+    # the kernel reads rows, bvec and BN_a's vectors 8 bytes at a time
+    table, bvec, *vectors = (t if t.data_ptr() % 8 == 0 else t.clone()
+                             for t in (table, bvec, *vectors))
+    out = torch.empty((b, n, _WIDTH), dtype=torch.float32, device=table.device)
+    err = _build.lib().dgcnn_edgeconv_stage_bf16(
+        table.data_ptr(), idx.data_ptr(), bvec.data_ptr(), w2.data_ptr(),
+        *(v.data_ptr() for v in vectors), out.data_ptr(), b, n, idx.shape[-1],
+        warps, per, _stream(table.device),
+    )
+    _build.check(err, "edgeconv_fused_stage_bf16")
     return out
 
 
@@ -191,10 +229,14 @@ def _launch_checked(table, idx, bvec, w2, vectors, bf16_mm: bool) -> torch.Tenso
     _check_cuda(table, idx, bvec, vectors)
     if w2.shape != (_WIDTH, _WIDTH) or w2.dtype != torch.float32 or w2.device != table.device:
         raise ValueError(f"w2 must be float32 ({_WIDTH}, {_WIDTH}) on {table.device}")
-    geometry = launch_geometry(idx.shape[-1])
     table, idx, bvec, w2 = (t.contiguous() for t in (table, idx, bvec, w2))
-    return launch_stage(table, idx, bvec, w2, [v.contiguous() for v in vectors], geometry,
-                        bf16_mm=bf16_mm)
+    vectors = [v.contiguous() for v in vectors]
+    b, n, k = idx.shape
+    if bf16_mm:
+        sms = torch.cuda.get_device_properties(table.device).multi_processor_count
+        return launch_stage_bf16(table, idx, bvec, w2, vectors,
+                                 launch_geometry_bf16(b, n, k, sms))
+    return launch_stage(table, idx, bvec, w2, vectors, launch_geometry(k))
 
 
 def edgeconv_fused_stage_bf16(table, idx, bvec, w2, scale_a, shift_a, scale_b,

@@ -1,28 +1,44 @@
-"""Build variants of the fused stage kernel (``csrc/edgeconv_fused.cu`` with
-a constant or a line changed) and time them beside each other, on one GPU,
-at the production shape (B=8, N=7000, k=30, ``knn_capped`` indices: the
-first of ``chip_smoke.stage_cases``).
+"""Build variants of the fused stage kernels (``csrc/edgeconv_fused.cu`` with
+a constant or a line changed) and time them beside each other, on one GPU.
 
     python scripts/exp_edgeconv_stage_variants.py [--ceiling] [NAME ...]
+    python scripts/exp_edgeconv_stage_variants.py --bf16 [--root DIR] [--sharing] [NAME ...]
 
-Each variant is a list of text replacements (``VARIANTS``; ``shipped`` has
-none) applied to a copy of ``csrc/`` under
-``build/edgeconv_stage_variants/NAME/``; the copy's ``edgeconv_fused.cu`` and
-``knn_capped.cu`` (which holds the error-string entry point) are compiled
-with the port's flags into one library, all variants at once. The script
-prints the compiler's register and spill lines of the stage kernel's
-instances, holds each variant's output ``torch.equal`` to the shipped
-kernel's (except the ``diag_`` variants, which leave a part of the kernel
-out to see what it costs), and times it device-only
-(``chip_smoke.cuda_ms_many`` of ``launch_stage``) at the geometries of
-``GEOMETRIES``. Without arguments it runs every variant. ``--ceiling``
-also times cuBLAS FP32 SGEMM at 8192^3 (what FP32 SIMT reaches on the
-card) and samples the SM clock and power while it and the stage kernel run.
-Prints one JSON line with the card's name and power limit.
+Each variant is a list of text replacements (``shipped`` has none) applied
+to a copy of ``csrc/`` under ``build/edgeconv_stage_variants/NAME/``; the
+copy's ``edgeconv_fused.cu`` and ``knn_capped.cu`` (which holds the
+error-string entry point) are compiled with the port's flags into one
+library, all variants at once. The script prints the compiler's register
+and spill lines of the kernel's instances, holds each variant's output
+``torch.equal`` to the shipped kernel's (except the ``diag_`` variants,
+which leave a part of the kernel out to see what it costs), and times it
+device-only (``chip_smoke.cuda_ms_many`` of the kernel's launcher).
+
+The FP32 kernel (``VARIANTS``) is timed at the production shape (B=8,
+N=7000, k=30, ``knn_capped`` indices: the first of
+``chip_smoke.stage_cases``) at the geometries of ``GEOMETRIES``.
+``--ceiling`` also times cuBLAS FP32 SGEMM at 8192^3 (what FP32 SIMT
+reaches on the card) and samples the SM clock and power while it and the
+stage kernel run.
+
+``--bf16`` times the bf16 kernel (``edgeconv_stage_bf16_kernel``) on the
+four production cases of ``chip_smoke.stage_cases`` (``knn_capped``,
+banded stage 1 and 2, the default forward's stage-3 indices), at its
+wrapper's geometry and at ``BF16_GEOMETRIES``. ``--root DIR`` takes the
+package and the sources of another checkout (unpacked with ``git
+archive``): a checkout whose bf16 kernel is the first design (warps a
+grid apart, cp.async staging, no ``launch_geometry_bf16`` in its wrapper)
+gets ``FIRST_BF16_VARIANTS``, one with the present design
+``BF16_VARIANTS``. ``--sharing`` also prints, per case, the share of
+distinct rows among Q = 32, 64 and 128 consecutive queries' indices
+(``scripts/torch_edgeconv_fused.py::sharing``). Without names it runs
+every variant of the chosen set. Prints one JSON line with the card's name
+and power limit.
 """
 
 from __future__ import annotations
 
+import argparse
 import importlib.util
 import json
 import subprocess
@@ -155,22 +171,112 @@ VARIANTS["half16"] = [(_LOOP, _HALF), _WARPS16]
 GEOMETRIES = [(8, 2, 0), (10, 2, 0), (12, 1, 0), (12, 2, 0)]
 WARPS16 = {"warps16", "half16"}  # these also run 16 warps with one buffer
 
+# The first bf16 design (a checkout whose wrapper has no
+# launch_geometry_bf16): what the gather, the transform and the product
+# each cost, the gather's 16-byte copies allocated in L1, and a contiguous
+# range of queries a block (its warps on neighbouring queries) in that frame
+FIRST_BF16_VARIANTS = {
+    "shipped": [],
+    "diag_no_gather": VARIANTS["diag_no_gather"],
+    "diag_no_transform": [("for (int h = 0; h < 2; ++h) {  // rows 0..15, then 16..31",
+                           "for (int h = 0; h < 0; ++h) {  // rows 0..15, then 16..31")],
+    "diag_no_product": [("    for (int ks = 0; ks < kC / 16; ++ks) {\n      uint32_t a0[4], a1[4];",
+                         "    for (int ks = 0; ks < 0; ++ks) {\n      uint32_t a0[4], a1[4];")],
+    "gather_ca": VARIANTS["gather_ca"],
+    "contiguous": [(
+        "  const int rows = B * N;  // at most INT_MAX / 8 (the launcher): q + 3G stays an int\n"
+        "  const int G = gridDim.x * warps;\n"
+        "  const int nch = (K + kUnitRows - 1) / kUnitRows;\n"
+        "  Unit cur{(int)blockIdx.x * warps + warp, 0, 0};  // the unit multiplied\n"
+        "  Unit st = cur;                                   // the next unit staged\n"
+        "  int nb = st.q < rows ? unit_index(idx, st.q, st.c, K, N, lane) : 0;  // st's rows\n"
+        "  auto stage_next = [&]() {",
+        "  const int per = (B * N + gridDim.x - 1) / gridDim.x;\n"
+        "  const int rows = min(B * N, (int)blockIdx.x * per + per);  // this block's end\n"
+        "  const int G = warps;\n"
+        "  const int nch = (K + kUnitRows - 1) / kUnitRows;\n"
+        "  Unit cur{(int)blockIdx.x * per + warp, 0, 0};  // the unit multiplied\n"
+        "  Unit st = cur;                                   // the next unit staged\n"
+        "  int nb = st.q < rows ? unit_index(idx, st.q, st.c, K, N, lane) : 0;  // st's rows\n"
+        "  auto stage_next = [&]() {")],
+}
+_BF16_NEXT_LOAD = ("      load_share(x[j], tab1 + (size_t)__shfl_sync(kFull, nb1, 8 * j + g) * kC, "
+                   "t);")
+_BF16_ACT = ("        b[s][0] = activate(x[j][s][0], bv[s][0], L.sa[s][0], L.ta[s][0]);\n"
+             "        b[s][1] = activate(x[j][s][1], bv[s][1], L.sa[s][1], L.ta[s][1]);")
+_BF16_BARE = ("        b[s][0] = pack_bf16(x[j][s][0].x, x[j][s][0].y);\n"
+              "        b[s][1] = pack_bf16(x[j][s][1].x, x[j][s][1].y);")
+_BF16_MMA = "for (int s = 0; s < 4; ++s) mma_bf16(d[m], L.a[m][s], b[s][0], b[s][1]);"
+_BF16_NO_MMA = ("for (int s = 0; s < 4; ++s) d[m][s] = __uint_as_float(L.a[m][s][0] ^ b[s][0] ^ "
+                "b[s][1]);")
+_LOAD_SHARE = ("    p[s][0] = kStream ? __ldcs(r2 + 8 * s) : __ldg(r2 + 8 * s);\n"
+               "    p[s][1] = kStream ? __ldcs(r2 + 8 * s + 4) : __ldg(r2 + 8 * s + 4);")
+_ROW_LOADS = (
+    _BF16_NEXT_LOAD,
+    "{\n#pragma unroll\n        for (int r = 0; r < 8; ++r)\n          x[j][r / 2][r % 2] = "
+    "__ldg(reinterpret_cast<const float2*>(tab1 + (size_t)__shfl_sync(kFull, nb1, 8 * j + r) "
+    "* kC) + L.lane);\n      }")
+# The present bf16 design: each part left out (the gather keeps the first
+# unit's rows; the transform becomes a bare bf16 pack; the product a xor
+# that keeps its operands alive), alone or in pairs, half the products (two
+# k-steps of four: what the tensor cores' mma.sync rate costs), the rows
+# read past L1 (L2 only: what L1's reuse is worth), each load a whole row
+# (256 bytes, two lines) instead of 32 bytes of eight rows (the rows land
+# in the wrong lanes: the access pattern alone), and the products issued
+# k-step by k-step across the m-tiles (each accumulator's chain still
+# k-steps 0..3 in order)
+BF16_VARIANTS = {
+    "shipped": [],
+    "diag_no_gather": [(_BF16_NEXT_LOAD, "      (void)tab1;")],
+    "diag_no_transform": [(_BF16_ACT, _BF16_BARE)],
+    "diag_no_product": [(_BF16_MMA, _BF16_NO_MMA)],
+    "diag_gather_only": [(_BF16_ACT, _BF16_BARE), (_BF16_MMA, _BF16_NO_MMA)],
+    "diag_product_only": [(_BF16_NEXT_LOAD, "      (void)tab1;"), (_BF16_ACT, _BF16_BARE)],
+    "diag_activation_only": [(_BF16_NEXT_LOAD, "      (void)tab1;"), (_BF16_MMA, _BF16_NO_MMA)],
+    "diag_half_product": [(_BF16_MMA, _BF16_MMA.replace("s < 4", "s < 2"))],
+    "diag_rows_past_l1": [(_LOAD_SHARE, _LOAD_SHARE.replace("__ldg(", "__ldcg("))],
+    "diag_row_loads": [_ROW_LOADS],
+    "s_outer": [("#pragma unroll\n      for (int m = 0; m < 4; ++m) {\n"
+                 "        d[m][0] = d[m][1] = d[m][2] = d[m][3] = 0.f;\n#pragma unroll\n"
+                 "        " + _BF16_MMA + "\n      }",
+                 "#pragma unroll\n      for (int m = 0; m < 4; ++m) d[m][0] = d[m][1] = d[m][2] = "
+                 "d[m][3] = 0.f;\n#pragma unroll\n      for (int s = 0; s < 4; ++s)\n"
+                 "#pragma unroll\n        for (int m = 0; m < 4; ++m) "
+                 "mma_bf16(d[m], L.a[m][s], b[s][0], b[s][1]);")],
+}
+# --bf16, the present design: (warps, queries a block) beside the wrapper's,
+# 0 for the wrapper's range
+BF16_GEOMETRIES = [(4, 0), (6, 0), (8, 64), (8, 212)]
+
 
 def _start_build(name: str, patches: list[tuple[str, str]], out_dir: Path):
+    """A patched copy of the imported package's ``csrc/`` (``--root``'s)."""
     return kv.start_build(name, patches, out_dir, ("edgeconv_fused.cu",),
                           ("edgeconv_fused.cu",))
 
 
-def _finish_build(name: str, *started):
+def _finish_build(name: str, started, kernel: str):
     handle, log = kv.finish_build(name, *started)
-    return handle, kv.ptxas_lines(log, {"edgeconv_stage_kernel": None})
+    return handle, kv.ptxas_lines(log, {kernel: None})
+
+
+def _smi() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
 
 
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
-    ceiling = "--ceiling" in argv
-    argv = [a for a in argv if a != "--ceiling"]
-    variants = {name: VARIANTS[name] for name in (argv or VARIANTS)}
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("names", nargs="*")
+    ap.add_argument("--ceiling", action="store_true")
+    ap.add_argument("--bf16", action="store_true", help="the bf16 kernel's variants")
+    ap.add_argument("--root", default=str(HERE), help="checkout whose kernel is patched")
+    ap.add_argument("--sharing", action="store_true", help="distinct rows among queries")
+    args = ap.parse_args(argv)
+    root = Path(args.root).resolve()
+    sys.path.insert(0, str(root))  # the patched tree's package first
     spec = importlib.util.spec_from_file_location("chip_smoke_variants", HERE / "chip_smoke.py")
     cs = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(cs)
@@ -179,21 +285,25 @@ def main(argv=None) -> int:
 
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: the kernel variants run on one GPU")
+    import dgcnn_tpu_torch
     from dgcnn_tpu_torch.kernels import _build
     from dgcnn_tpu_torch.kernels import edgeconv_fused as mod
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    if not Path(dgcnn_tpu_torch.__file__).resolve().is_relative_to(root):
+        raise RuntimeError(f"imported {dgcnn_tpu_torch.__file__}, not the port under {root}")
+    if args.bf16:
+        return _main_bf16(args, cs, mod, _build)
+    variants = {name: VARIANTS[name] for name in (args.names or VARIANTS)}
     out_dir = HERE / "build" / "edgeconv_stage_variants"
-    started = {name: _start_build(name, patches, out_dir) for name, patches in variants.items()}
+    started = {name: _start_build(name, patches, out_dir)
+               for name, patches in variants.items()}
     case = next(iter(cs.stage_cases(torch.device("cuda")).values()))
     t, i, bv, w2 = (case[key] for key in ("table", "idx", "bvec", "w2"))
     vec = [case[key] for key in ("sa", "ta", "sb", "tb")]
     want = mod.edgeconv_fused_stage(*cs.stage_args(case))
     results = {}
     for vname, build in started.items():
-        handle, lines = _finish_build(vname, *build)
+        handle, lines = _finish_build(vname, build, "edgeconv_stage_kernel")
         print(vname, *lines, sep="\n  ", file=sys.stderr)
         _build._lib = handle
         try:
@@ -210,9 +320,73 @@ def main(argv=None) -> int:
         results[vname] = row
         print(f"{vname}: " + ", ".join(f"{k} {v:.4f}" for k, v in row.items()
                                        if isinstance(v, float)), file=sys.stderr)
-    out = {"device": smi, "variants": results}
-    if ceiling:
+    out = {"device": _smi(), "variants": results}
+    if args.ceiling:
         out["ceiling"] = _ceiling(cs, lambda: mod.edgeconv_fused_stage(*cs.stage_args(case)))
+    print(json.dumps(out))
+    return 0
+
+
+def _main_bf16(args, cs, mod, _build) -> int:
+    """The bf16 kernel's variants on the four production cases."""
+    import torch
+
+    first = not hasattr(mod, "launch_geometry_bf16")
+    table = FIRST_BF16_VARIANTS if first else BF16_VARIANTS
+    variants = {name: table[name] for name in (args.names or table)}
+    out_dir = HERE / "build" / ("edgeconv_bf16_first" if first else "edgeconv_bf16_variants")
+    started = {name: _start_build(name, patches, out_dir)
+               for name, patches in variants.items()}
+    dev = torch.device("cuda")
+    cases = {label: case for label, case in cs.stage_cases(dev).items()
+             if not label.startswith("ragged")}
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def launcher(case, geometry):
+        t, i, bv, w2 = (case[key] for key in ("table", "idx", "bvec", "w2"))
+        vec = [case[key] for key in ("sa", "ta", "sb", "tb")]
+        if first:
+            return lambda: mod.launch_stage(t, i, bv, w2, vec, (12, 2), 0, bf16_mm=True)
+        return lambda: mod.launch_stage_bf16(t, i, bv, w2, vec, geometry)
+
+    geometries = {"wrapper": None}
+    if not first:
+        b, n, k = next(iter(cases.values()))["idx"].shape
+        warps, per = mod.launch_geometry_bf16(b, n, k, sms)
+        geometries = {f"warps={w} per={p or per}": (w, p or per)
+                      for w, p in [(warps, per), *BF16_GEOMETRIES]}
+    want = {label: mod.edgeconv_fused_stage_bf16(*cs.stage_args(case))
+            for label, case in cases.items()}
+    results = {}
+    for vname, build in started.items():
+        handle, lines = _finish_build(vname, build, "edgeconv_stage_bf16_kernel")
+        print(vname, *lines, sep="\n  ", file=sys.stderr)
+        _build._lib = handle
+        try:
+            row = {}
+            for label, case in cases.items():
+                gs = (geometries.items() if vname == "shipped"
+                      else list(geometries.items())[:1])
+                for gname, geometry in gs:
+                    run = launcher(case, geometry)
+                    if not vname.startswith("diag_") and not torch.equal(run(), want[label]):
+                        raise AssertionError(f"{vname} {label} {gname}: outputs differ")
+                    row[f"{label} {gname}"] = cs.cuda_ms_many(run)
+        finally:
+            _build._lib = None
+        row["ptxas"] = lines
+        results[vname] = row
+        print(f"{vname}: " + ", ".join(f"{k} {v:.4f}" for k, v in row.items()
+                                       if isinstance(v, float)), file=sys.stderr)
+    out = {"device": _smi(), "root": str(Path(args.root).resolve()),
+           "design": "first" if first else "present", "variants": results}
+    if args.sharing:
+        spec = importlib.util.spec_from_file_location(
+            "torch_edgeconv_fused_sharing", HERE / "scripts" / "torch_edgeconv_fused.py")
+        fused = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(fused)
+        out["sharing"] = {label: {q: fused.sharing(case["idx"], case["idx"].shape[1], q)
+                                  for q in (32, 64, 128)} for label, case in cases.items()}
     print(json.dumps(out))
     return 0
 

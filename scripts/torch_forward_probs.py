@@ -10,7 +10,9 @@ run writes each forward's probabilities there, the second holds its own
 ``torch.equal`` to them. The forwards: ``chip_smoke.py``'s phase 6 model
 (B=8, N=7000, k=30, emb 1024, weights from seed 1, ``make_blocks(8, 7000,
 seed=0)``) in the default configuration on a guarded and on an unguarded
-dispatch, the capped-only path, the parity mode and the packed mode.
+dispatch, the capped-only path, the parity mode, the packed mode and the
+bf16 serving configuration (``compute_dtype="bfloat16"``, guarded and
+unguarded).
 Prints one JSON line: the card's ``nvidia-smi`` name and power limit, the
 root, and for each forward the tree it was held equal to (null where it
 was written).
@@ -67,6 +69,7 @@ def main(argv=None) -> int:
                                    knn_band_feature=0),
         "parity": DGCNNConfig(k=30, emb_dims=1024, knn_impl="pallas"),
         "packed": DGCNNConfig(k=30, emb_dims=1024, knn_impl="pallas_packed"),
+        "bf16": DGCNNConfig(k=30, emb_dims=1024, compute_dtype="bfloat16"),
     }
     weights = init_dgcnn(configs["default"], torch.Generator().manual_seed(1)).state_dict()
     held = {}
@@ -74,7 +77,7 @@ def main(argv=None) -> int:
         model = DGCNN(cfg)
         model.load_state_dict(weights)
         model.to("cuda")
-        modes = {"guarded": 1, "unguarded": 0} if name == "default" else {"": None}
+        modes = {"guarded": 1, "unguarded": 0} if name in ("default", "bf16") else {"": None}
         for mode, band_mode in modes.items():
             label = f"forward {name} {mode}".strip()
             kw = {} if band_mode is None else {"band_mode": band_mode}

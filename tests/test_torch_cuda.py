@@ -18,7 +18,9 @@ from dgcnn_tpu_torch.kernels.edgeconv_fused import (
     edgeconv_fused_stage_plain,
     fold_bn,
     launch_extrema,
+    launch_geometry_bf16,
     launch_stage,
+    launch_stage_bf16,
     stage_bf16_tolerance,
 )
 from dgcnn_tpu_torch.kernels.knn_banded import (
@@ -45,6 +47,7 @@ from dgcnn_tpu_torch.kernels.knn_exact_banded import (
 from dgcnn_tpu_torch.kernels.knn_packed import knn_packed, knn_packed_plain
 from dgcnn_tpu_torch.kernels.knn_packed import launch_kernel as knn_packed_launch
 from dgcnn_tpu_torch.models.dgcnn import DGCNNConfig, init_dgcnn
+from dgcnn_tpu_torch.ops.edgeconv import lrelu
 from torch_port_helpers import random_bn, replay_knn, sorted_blocks
 
 pytestmark = pytest.mark.cuda
@@ -552,32 +555,135 @@ def test_fused_stage_bf16_kernel_equals_plain(dev):
     _assert_bf16_close(got, table, idx, bvec, w2, sa, ta, sb, tb)
 
 
-# (warps, nbuf, grid): the shipped geometry first
-BF16_GEOMETRIES = [(12, 2, 0), (12, 1, 0), (8, 2, 0), (4, 1, 0), (1, 1, 0), (12, 2, 3)]
+# (b, n, k): k = 1, within one unit of 32 rows, one unit exactly, one row
+# past it, two units; ragged n; n smaller than a block's range at the
+# production geometry (8 clouds of 50 queries: blocks span clouds)
+BF16_SHAPES = [(2, 1200, 30), (1, 1001, 1), (1, 1001, 20), (1, 1001, 32), (1, 1001, 33),
+               (1, 1001, 40), (1, 1001, 64), (8, 50, 30), (3, 77, 1)]
+# (warps, queries a block), beside the wrapper's: 1 and 3 warps, one query
+# a block, ranges of 7 and 64, one block for every query
+BF16_GEOMETRIES = [(1, 0), (3, 0), (8, 1), (8, 7), (8, 64), (8, 1 << 30)]
 
 
-@pytest.mark.parametrize("b, n, k", STAGE_SHAPES)
-def test_fused_stage_bf16_kernel_geometries(dev, b, n, k):
-    """Every launch geometry of the bf16 kernel gives the same outputs, bit
-    for bit (a unit's products are summed in one order whichever warp takes
-    it), within the tolerance of the plain version, with indices outside
-    [0, n) clamped, a zero BN_b scale (its lanes take the per-row epilogue)
-    and negative ones."""
-    rng = np.random.default_rng(100 + k)
+def _bf16_operands(dev, b, n, k, seed):
+    rng = np.random.default_rng(seed)
     table, bvec = _on(dev, *rng.standard_normal((2, b, n, 64)).astype(np.float32))
-    idx, = _on(dev, rng.integers(-2, n + 2, (b, n, k)).astype(np.int32))
+    idx, = _on(dev, rng.integers(-2, n + 2, (b, n, k)).astype(np.int32))  # uniform, clamped
     w2, = _on(dev, rng.uniform(-0.125, 0.125, (64, 64)).astype(np.float32))
     (sa, ta), (sb, tb) = [fold_bn(*_on(dev, v["gamma"], v["beta"], v["mean"], v["var"]))
                           for v in (random_bn(rng, 64), random_bn(rng, 64))]
-    sb[1] = 0.0
-    vectors = [sa, ta, sb, tb]
-    got = [launch_stage(table, idx, bvec, w2, vectors, g[:2], g[2], bf16_mm=True)
-           for g in BF16_GEOMETRIES]
-    _assert_bf16_close(got[0], table, idx, bvec, w2, *vectors)
-    for g, out in zip(BF16_GEOMETRIES, got):
-        assert torch.equal(out, got[0]), g
-    with pytest.raises(RuntimeError, match="edgeconv_fused_stage_bf16"):
-        launch_stage(table, idx, bvec, w2, vectors, (12, 3), bf16_mm=True)  # 1..2 buffers
+    return table, idx, bvec, w2, [sa, ta, sb, tb]
+
+
+@pytest.mark.parametrize("b, n, k", BF16_SHAPES)
+def test_fused_stage_bf16_kernel_geometries(dev, b, n, k):
+    """Every launch geometry of the bf16 kernel gives the same outputs, bit
+    for bit (a unit's products are summed in one order whichever warp takes
+    it), within the tolerance of the plain version, on uniform indices with
+    some outside [0, n) (clamped), BN_b scales of both signs and a zero
+    one (the warp then applies BN_b to every row before the max)."""
+    table, idx, bvec, w2, vectors = _bf16_operands(dev, b, n, k, 100 + k)
+    for zero in (False, True):
+        if zero:
+            vectors[2] = vectors[2].clone()
+            vectors[2][1] = 0.0
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        shipped = launch_geometry_bf16(b, n, k, sms)
+        got = [launch_stage_bf16(table, idx, bvec, w2, vectors, g)
+               for g in [shipped, *((w, p or shipped[1]) for w, p in BF16_GEOMETRIES)]]
+        _assert_bf16_close(got[0], table, idx, bvec, w2, *vectors)
+        for g, out in zip(BF16_GEOMETRIES, got[1:]):
+            assert torch.equal(out, got[0]), (zero, g)
+        assert torch.equal(edgeconv_fused_stage_bf16(table, idx, bvec, w2, *vectors), got[0])
+
+
+def test_fused_stage_bf16_kernel_non_finite_scales(dev):
+    """Channels whose BN_b is not finite take BN_b and the LeakyReLU on every
+    row and fmaxf skips NaN rows, as in the kernel this one replaced: an
+    infinite scale gives +inf where some row's product has the scale's
+    sign (-inf where none has), a NaN scale -inf, an infinite shift +inf;
+    every other channel stays within the tolerance of the plain version."""
+    table, idx, bvec, w2, (sa, ta, sb, tb) = _bf16_operands(dev, 2, 1200, 30, 7)
+    sb, tb = sb.clone(), tb.clone()
+    sb[3], sb[9], sb[5], tb[7] = float("inf"), float("-inf"), float("nan"), float("inf")
+    got = edgeconv_fused_stage_bf16(table, idx, bvec, w2, sa, ta, sb, tb)
+    regular = [c for c in range(64) if c not in (3, 5, 7, 9)]
+    want = edgeconv_fused_stage_plain(table, idx, bvec, w2, sa, ta, sb, tb, bf16_mm=True)
+    tol = stage_bf16_tolerance(table, idx, bvec, w2, sa, ta, sb)
+    assert ((got - want).abs()[..., regular] <= tol[..., regular]).all()
+    # the rows' products (bf16 operands, FP32 sums): their signs decide
+    clamped = idx.clamp(0, 1199).long()
+    e = torch.stack([table[i][clamped[i]] for i in range(2)]) + bvec[:, :, None, :]
+    e = lrelu((e.double() * sa.double() + ta.double()).float())
+    h = torch.matmul(e.to(torch.bfloat16).float(), w2.to(torch.bfloat16).float())
+    inf = torch.full_like(got[..., 3], float("inf"))
+    assert torch.equal(got[..., 3], torch.where((h[..., 3] > 0).any(-1), inf, -inf))
+    assert torch.equal(got[..., 9], torch.where((h[..., 9] < 0).any(-1), inf, -inf))
+    assert torch.equal(got[..., 5], -inf)
+    assert torch.equal(got[..., 7], inf)
+
+
+def test_fused_stage_bf16_kernel_refuses_out_of_range_geometries(dev):
+    """The launcher refuses (cudaErrorInvalidValue) 0 or more than 8 warps a
+    block and ranges below one query; the wrapper's geometry is in range."""
+    table, idx, bvec, w2, vectors = _bf16_operands(dev, 1, 1001, 30, 3)
+    for geometry in ((0, 10), (9, 10), (16, 10), (8, 0), (8, -1)):
+        with pytest.raises(RuntimeError, match="edgeconv_fused_stage_bf16"):
+            launch_stage_bf16(table, idx, bvec, w2, vectors, geometry)
+    warps, per = launch_geometry_bf16(1, 1001, 30)
+    assert 1 <= warps <= 8 and per >= 1
+
+
+# SHA-256 of the stage kernels' outputs on chip_smoke.stage_cases (float32
+# bytes), written by the first bf16 design (warps a grid apart, cp.async
+# staging) and the FP32 stage and extrema kernels beside it: the bf16
+# redesign must give the first design's bits, and the other two kernels
+# must not move. The forward-dependent stage-3 case is held across trees
+# by scripts/torch_edgeconv_bf16.py instead.
+STAGE_DIGESTS = {
+    "capped C=64": (
+        "42f5116ec9ab114febe1064801752facbd5e11fae04432f4323b476431281c26",
+        "fbeed3574b2945e71dc615b42af641e7e506c1eddadbd927c3c05207339853bc",
+        "9be4f18d54d50d288a7fa0a9fc8b127352d1dd59d409ff9f322fee96509fa1a7"),
+    "banded stage 1 (blocks, band 2048)": (
+        "80b035922c34996e5784cf8e742fb39f1408d7c4a849e30159568bcc47779fdd",
+        "efbbd9b50bc540641122ab505b0283b75e5bd0507872fc4959b611d18304454c",
+        "dec901cc31338374e44634dfa310e384eeb32da2620fe149c78ba8adee6db6bd"),
+    "banded stage 2 (C=64, band 4096)": (
+        "284892d46a16588e53c8019fcbaf3aea29f6de647b33e24a4d2c75767cfb3f4a",
+        "77f23dac40b883a6fd76df1305156cda68dcffca89120d3de29f98ddca0d58a9",
+        "84d17407b3268447b35d935664f009860f30125a65019d4f069ea85484c1ec45"),
+    "ragged B=1 N=1001 k=20": (
+        "ab64f900a0a094aa237b211fd57bcd7bef57790cddc0e56786cc29f92e42c438",
+        "7324853d1bde98e9490aa7a9d95c6f2ae3e829291a9b264ee96e373cfd11307c",
+        "b4b1d05661218b544f0a37c1c582f564aed09cce7185890e7100a5e87878b970"),
+    "ragged B=1 N=1001 k=30": (
+        "3cbe8ce4a7afbc2ed22a3943218082040089b2b8b9880158415064aa651b88a7",
+        "d2309f820f2423b1ba2cb3e603124ef52dd20d07e9b2d3830a608eaff8ee75ce",
+        "f2e7ac891845f86d85a9b4414aa1953755f8a597d302239ff4e21fa05224fc78"),
+    "ragged B=1 N=1001 k=40": (
+        "cba5a75bac6e05d136eec04fdd33a89c8f0e48726d55232daf540a4f3a6f328c",
+        "4d68813cccb6f2ed92ba8fa1ec78350718d30fb6173ebae8c29e77b0dad0520a",
+        "09c0c9fd9ead00eb73eb1f61c1f3aeac160a603e3ebf11188fa8282027c03fac"),
+}
+
+
+@pytest.mark.parametrize("case", list(STAGE_DIGESTS))
+def test_stage_kernels_give_the_first_design_bits(dev, case):
+    import hashlib
+    import importlib.util
+    from pathlib import Path
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke_digests", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    inputs = cs.stage_cases(dev)[case]
+    a, ex = cs.stage_args(inputs), cs.extrema_args(inputs)
+    got = (edgeconv_fused_stage_bf16(*a), edgeconv_fused_stage(*a), edgeconv_fused_extrema(*ex))
+    digests = tuple(hashlib.sha256(t.contiguous().cpu().numpy().tobytes()).hexdigest()
+                    for t in got)
+    assert digests == STAGE_DIGESTS[case]
 
 
 def test_bf16_model_on_cuda_matches_cpu_plain_versions(dev):

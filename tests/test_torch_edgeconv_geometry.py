@@ -8,15 +8,25 @@ and keeps the per-row order for lanes whose channels are not all regular:
 equal to the replaced kernel's order (BN_b and LeakyReLU on every row, then
 the max) on inputs with NaN and infinite rows, zero and non-finite scales
 and non-finite shifts. The bf16 kernel (``edgeconv_stage_bf16_kernel``)
-keeps the same rule on its own lanes: the tensor-core fragments give lane
-(g, t) the 16 channels 8n + 2t, 8n + 2t + 1."""
+keeps the same rule, chosen for the whole warp: the max before BN_b where
+all 64 channels are regular, else BN_b on every row. Its geometry
+(``launch_geometry_bf16``: 8 warps, a contiguous range of queries a block)
+takes no shared memory; ``tests/test_torch_edgeconv_bf16_layout.py`` pins
+it at its edges."""
 
 import numpy as np
 import pytest
 import torch
 
 from dgcnn_tpu_torch.kernels import _build
-from dgcnn_tpu_torch.kernels.edgeconv_fused import STAGE_GEOMETRY, launch_geometry, smem_bytes
+from dgcnn_tpu_torch.kernels.edgeconv_fused import (
+    BF16_SMEM_BYTES,
+    BF16_WARPS,
+    STAGE_GEOMETRY,
+    launch_geometry,
+    launch_geometry_bf16,
+    smem_bytes,
+)
 from dgcnn_tpu_torch.kernels.knn_banded import SMEM_LIMIT
 
 # the replaced kernel held 8 queries' k rows (padded to a multiple of 8),
@@ -38,9 +48,11 @@ def test_every_k_fits(k):
 
 @pytest.mark.parametrize("k", KS)
 def test_every_k_fits_bf16(k):
-    """The bf16 kernel's shared memory does not grow with k either."""
-    warps, nbuf = launch_geometry(k)
-    assert smem_bytes(warps, nbuf, bf16_mm=True) <= SMEM_LIMIT
+    """The bf16 kernel's geometry does not grow with k, and it takes no
+    shared memory."""
+    warps, per = launch_geometry_bf16(1, 7000, k)
+    assert (warps, per) == (BF16_WARPS, 54) and 1 <= warps <= 8
+    assert BF16_SMEM_BYTES == 0 <= SMEM_LIMIT
 
 
 @pytest.mark.parametrize("k", [0, -1])
@@ -54,9 +66,9 @@ def test_geometry_at_the_production_shape():
     231 808-byte block per SM."""
     assert launch_geometry(30) == (12, 2) == STAGE_GEOMETRY
     assert smem_bytes(12, 2) == 231808 <= SMEM_LIMIT
-    # the bf16 kernel, at the same geometry: W2 in bf16 (rows of 72), the
-    # rows' bf16 copies in their own staged rows
-    assert smem_bytes(12, 2, bf16_mm=True) == 224640 <= SMEM_LIMIT
+    # the bf16 kernel: 8 warps and 425 queries a block (132 blocks, one an
+    # SM), W2 in registers, no shared memory
+    assert launch_geometry_bf16(8, 7000, 30) == (8, 425)
 
 
 def test_smem_bytes_matches_the_source():
@@ -67,9 +79,7 @@ def test_smem_bytes_matches_the_source():
                  "constexpr int kUnitFloats = (kUnitRows + 1) * kRowStride;",
                  "constexpr int kMaxStageWarps = 12;", "constexpr int kMaxBuffers = 2;",
                  "return sizeof(float) * ((size_t)kC * kC + (size_t)warps * nbuf * kUnitFloats);",
-                 "constexpr int kW2Ld = kC + 8;",
-                 "return sizeof(__nv_bfloat16) * (size_t)kC * kW2Ld +",
-                 "sizeof(float) * (size_t)warps * nbuf * kUnitFloats;"):
+                 f"constexpr int kBfWarps = {BF16_WARPS};"):
         assert line in src, line
     # the largest geometry the launcher takes fits a Hopper block
     assert smem_bytes(12, 2) <= SMEM_LIMIT
@@ -95,10 +105,10 @@ def _replaced_epilogue(h, s, t):
     return _fmax_rows(_lrelu(_affine(h, s, t)))
 
 
-# a lane's channel group: the FP32 kernel's lane (rg, cg) holds channels
-# 4cg..4cg+3 and 32+4cg..32+4cg+3 (8 groups); the bf16 kernel's lane (g, t)
-# channels 8n + 2t, 8n + 2t + 1 (4 groups of 16)
-LANE_GROUPS = {"fp32": (lambda c: c % 32 // 4, 8), "bf16": (lambda c: c % 8 // 2, 4)}
+# the channels that share the choice of the max before BN_b: the FP32
+# kernel's lane (rg, cg) holds channels 4cg..4cg+3 and 32+4cg..32+4cg+3 (8
+# groups); the bf16 kernel chooses for its whole warp (one group of 64)
+LANE_GROUPS = {"fp32": (lambda c: c % 32 // 4, 8), "bf16": (lambda c: 0, 1)}
 
 
 def _kernel_epilogue(h, s, t, kernel="fp32"):
@@ -144,5 +154,5 @@ def test_epilogue_max_first_equals_replaced_order(special, kernel="fp32"):
 
 @pytest.mark.parametrize("special", [False, True])
 def test_bf16_epilogue_max_first_equals_replaced_order(special):
-    """The same rule on the bf16 kernel's lanes (channels 8n + 2t + j)."""
+    """The same rule in the bf16 kernel, chosen for all 64 channels at once."""
     test_epilogue_max_first_equals_replaced_order(special, kernel="bf16")
