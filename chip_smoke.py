@@ -152,7 +152,9 @@ Phases, each of which raises on failure (exit code 1, no result line):
    against its plain version on every ``stage_cases`` case within
    ``stage_tf32_tolerance``, bit for bit on integer operands at the
    production shape, timed by ``cuda_ms_many`` beside the FP32 and bf16
-   stage kernels and cuBLAS's TF32 GEMM on the bare product; (b) the
+   stage kernels and cuBLAS's TF32 GEMM on the bare product, with its
+   share of each bound (TF32 operations, bytes, the gather's rows at phase
+   2's L2 read rate) and its registers and spills (the build log); (b) the
    production forward under "default", "high", "highest", float16,
    "float32" and bf16 with "highest": each against the CPU plain forward of
    the same configuration (2, 2048) within 1e-3, against the FP32 forward
@@ -3675,14 +3677,33 @@ def _stage_launches(counters) -> tuple:
         "edgeconv_fused_extrema"))
 
 
-def phase_precision_kernel(dev) -> dict:
+def ptxas_of(fragment: str) -> list[str]:
+    """The port's build log's register, stack and spill lines of the entry
+    functions whose mangled name holds ``fragment``."""
+    from dgcnn_tpu_torch.kernels import _build
+
+    path = _build.library_path().with_suffix(".log")
+    lines, hit = [], False
+    for line in (path.read_text() if path.exists() else "").splitlines():
+        if "Compiling entry function" in line:
+            hit = fragment in line
+        elif hit and ("Used" in line or "spill" in line):
+            lines.append(line.split("ptxas info    :")[-1].strip())
+    return lines
+
+
+def phase_precision_kernel(dev, l2: dict | None = None) -> dict:
     """Phase 13a: the TF32 stage kernel against its plain version on every
     :func:`stage_cases` case, within ``stage_tf32_tolerance`` (two FP32 sum
     orders of the same exact TF32 products), and bit for bit on integer
     operands at the production shape (every product and partial sum exact);
     timed by :func:`cuda_ms_many` beside the FP32 (row 2) and bf16 (row 12)
     kernels on the same inputs, and cuBLAS's TF32 GEMM on the bare
-    (B*N*k, 64) x (64, 64) product as a ceiling."""
+    (B*N*k, 64) x (64, 64) product as a ceiling. Each production case gets
+    the kernel's share of each bound: TF32 operations at 495 TFLOP/s, bytes
+    at 3.35 TB/s and, given phase 2's ``l2`` measurement, the gather's rows
+    at the card's L2 read rate; the result carries the kernel's registers
+    and spills from the build log."""
     import torch
 
     from dgcnn_tpu_torch.kernels.edgeconv_fused import (
@@ -3742,11 +3763,26 @@ def phase_precision_kernel(dev) -> dict:
     del x
     nbytes = 4.0 * B * N * (3 * 64 + K) + 4.0 * (64 * 64 + 4 * 64)
     b_ms, b_by = bound(nbytes, 2.0 * B * N * K * 64 * 64, TF32_FLOP_PER_S)
+    bounds = {"operations": 2.0 * B * N * K * 64 * 64 / TF32_FLOP_PER_S * 1e3,
+              "bytes": nbytes / HBM_BYTES_PER_S * 1e3}
+    if l2 is not None:
+        bounds["l2_gather"] = l2["ms"]
+    for row in cases:
+        if "ms" in row:
+            row["share_of_bound"] = {key: v / row["ms"] for key, v in bounds.items()}
+    ptxas = ptxas_of("edgeconv_stage_tf32_kernel")
     log(f"[precision] bare (B*N*k, 64) x (64, 64) product, cuBLAS TF32: {cublas_tf32:.4f} ms; "
-        f"the TF32 stage's bound {b_ms:.4f} ms ({b_by})")
+        f"the TF32 stage's bound {b_ms:.4f} ms ({b_by}); its bounds "
+        + ", ".join(f"{key} {v:.4f} ms" for key, v in bounds.items())
+        + "; shares of them: " + "; ".join(
+            f"{row['case']}: " + ", ".join(f"{key} {v:.3f}" for key, v in
+                                           row["share_of_bound"].items())
+            for row in cases if "share_of_bound" in row)
+        + f"; ptxas: {ptxas}")
     return {"max_abs_err": max(r["max_abs_err"] for r in cases), "ms": cases[0]["ms"],
             "plain_ms": cases[0]["plain_ms"], "bound_ms": b_ms, "bound_by": b_by,
-            "f32_ms": cases[0]["f32_ms"], "bf16_ms": cases[0]["bf16_ms"],
+            "bounds_ms": bounds, "share_of_bound": cases[0]["share_of_bound"],
+            "ptxas": ptxas, "f32_ms": cases[0]["f32_ms"], "bf16_ms": cases[0]["bf16_ms"],
             "cublas_tf32_ms": cublas_tf32, "cases": cases}
 
 
@@ -4028,10 +4064,11 @@ def phase_precision_cli(tmp: str, dev) -> dict:
     return res
 
 
-def phase_precision(tmp: str, dev: str = "cuda") -> dict:
-    """Phase 13: precision and dtypes (a-d above)."""
+def phase_precision(tmp: str, dev: str = "cuda", l2: dict | None = None) -> dict:
+    """Phase 13: precision and dtypes (a-d above); ``l2``: phase 2's L2 read
+    rate of the gather, the TF32 stage kernel's third bound."""
     t0 = time.perf_counter()
-    res = {"kernel": phase_precision_kernel(dev), "forward": phase_precision_forward(dev),
+    res = {"kernel": phase_precision_kernel(dev, l2), "forward": phase_precision_forward(dev),
            "train": phase_precision_train(tmp, dev), "cli": phase_precision_cli(tmp, dev)}
     res["seconds"] = time.perf_counter() - t0
     log(f"[precision] phase 13 ran in {res['seconds']:.1f} s")
@@ -4054,7 +4091,8 @@ def main() -> int:
         evaluated = phase_eval(tmp)
         train_configs = phase_train_configs(tmp)
         parallel = phase_parallel(tmp)  # 12d trains on phase 7's rooms
-        precision = phase_precision(tmp)  # on phase 7's rooms and checkpoint
+        # on phase 7's rooms and checkpoint
+        precision = phase_precision(tmp, l2=fused[1]["l2_gather"])
     with tempfile.TemporaryDirectory() as tmp:
         lifecycle = phase_lifecycle(tmp, smi)
     with tempfile.TemporaryDirectory() as tmp:
@@ -4174,7 +4212,9 @@ def main() -> int:
         "launches": precision["cli"]["serve_launches"]["edgeconv_fused_stage_tf32"],
         **{k_: tf[k_] for k_ in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")},
         "library_ms": None, "mode": "tf32_mm (matmul_precision=\"default\")",
-        **{k_: tf[k_] for k_ in ("f32_ms", "bf16_ms", "cublas_tf32_ms")}})
+        "status": "redesigned (Queue 2 row 2': each W2 fragment read once a unit)",
+        **{k_: tf[k_] for k_ in ("bounds_ms", "share_of_bound", "ptxas", "f32_ms", "bf16_ms",
+                                 "cublas_tf32_ms")}})
     # the flat exact kNN at the repair's own call in the default forward
     rep = pick(knn_res["knn_exact"], "knn_exact repair (make_blocks, the forward's 256 queries)")
     b_ms, b_by = bound(bnc4 * 5 + 4.0 * B * 256 * (4 + K), 2.0 * B * 256 * N * 4)

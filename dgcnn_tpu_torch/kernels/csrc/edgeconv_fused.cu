@@ -181,21 +181,50 @@
 // kernel, ~0.075 ms.
 //
 // Design: the bf16 kernel's walk (a contiguous range of queries a block,
-// rows loaded straight into fragments through L1, loads a unit ahead, the
-// same epilogue and max-before-BN_b rule), with mma.sync m16n8k8 (tf32,
-// FP32 accumulation), D[c][r] = sum_d W2[d][c] e[r][d], k-steps of 8 input
-// channels. W2^T as TF32 takes 128 registers a lane, which with the rows in
-// flight is more than a thread has, so the block holds it in shared memory
-// (16 KB), in fragment order: one 16-byte read a lane per (m-tile, k-step),
+// rows loaded straight into fragments through L1, the same epilogue and
+// max-before-BN_b rule), with mma.sync m16n8k8 (tf32, FP32 accumulation),
+// D[c][r] = sum_d W2[d][c] e[r][d], k-steps of 8 input channels. W2^T as
+// TF32 takes 128 registers a lane, which with the rows in flight is more
+// than a thread has, so the block holds it in shared memory (16 KB), in
+// fragment order: one 16-byte read a lane per (m-tile, k-step),
 // consecutive lanes on consecutive addresses. The k positions are a
 // permutation of the input channels, the same for both operands (a sum's
 // terms may be taken in any order): lane (g, t) loads channels
 // 16i + 4t .. 16i + 4t + 3 (i = 0..3) of row g of an n-tile, four 16-byte
 // loads, and k-step s = 2i + v takes channels 16i + 4t + 2v (k row t) and
-// 16i + 4t + 2v + 1 (k row t + 4). The lane rounds what it activated to TF32
-// in registers. W2's NaNs are made the canonical NaN before the rounding,
-// so that the tensor cores, which read a value's top 19 bits, see a NaN;
-// the activations, results of arithmetic, are canonical already.
+// 16i + 4t + 2v + 1 (k row t + 4). W2's NaNs are made the canonical NaN
+// before the rounding, so that the tensor cores, which read a value's top
+// 19 bits, see a NaN; the activations, results of arithmetic, are canonical
+// already. A unit runs n-tile by n-tile: the n-tile's rows activated and
+// rounded, then multiplied m-tile by m-tile, k-step by k-step, each
+// accumulator taking k-steps 0..7 in order from zero and each running max
+// the n-tiles in order, so the outputs are the first design's bit for bit.
+// What holds it, measured with patched builds of this design
+// (scripts/exp_edgeconv_stage_variants.py --tf32; PERF.md row 2'), and what
+// the design does about each against the first one (0.134-0.137 ms; each
+// n-tile's next rows loaded right after its activation, the integer
+// rounding rule, BN_a in registers):
+// * the rounding: tf32_bits is seven integer instructions an element, at
+//   half the FP32 issue rate, 0.037 ms of the kernel; the card's conversion
+//   (tf32_rn: cvt.rn.tf32.f32, one F2FP) gives the same top 19 bits;
+// * the shared reads, the largest cost left (without them, every m-tile
+//   multiplied by m-tile 0's fragments, 0.068 ms): the first design's
+//   compiled code already read each fragment once a unit (32 LDS.128,
+//   reused over the n-tiles in registers, though the source names one a
+//   product); here each lane keeps m-tile 0's 8 fragments in registers for
+//   its walk and reads m-tiles 1-3's 24 once a unit, and BN_a's vectors
+//   come from shared memory (32 registers a lane otherwise);
+// * the registers: the next unit's rows and bvec are loaded once the
+//   unit's last product is issued, not while its products run (80
+//   registers in flight then), which is what pays for m-tile 0's
+//   fragments.
+// A unit's four n-tiles activated at once and multiplied m-tile by
+// m-tile, each fragment then fed to four mma.sync in the source as well
+// (the first design to try), needs 64 registers of fragments and ran
+// slower at each step (PERF.md row 2').
+// Resources (nvcc -Xptxas -v, sm_90a): 254 registers, no spill, 16,896
+// bytes of shared memory; cuobjdump -sass: 128 HMMA, 64 F2FP and 40 LDS
+// (8 of them BN_a's) in each of the loop's two instances, no GMMA.
 // Extrema design. The kernel only gathers and compares, so what bounds it
 // is the gather: B*N*k rows of 256 bytes (430 MB at B=8, N=7000, k=30) from
 // a table (1.8 MB a cloud) that L2 holds. A warp takes a query, lane l its
@@ -760,6 +789,18 @@ __device__ __forceinline__ uint32_t tf32_bits(float v) {
   return (u + 0xfffu + ((u >> 13) & 1u)) & 0xffffe000u;
 }
 
+// v rounded to TF32 by the card's conversion (cvt.rn: to nearest even, past
+// the largest finite value inf, a NaN a NaN): the top 19 bits, all the
+// tensor cores read, are tf32_bits's for every v but a NaN whose payload
+// lies in the low bits alone, which no result of arithmetic is (the card's
+// arithmetic makes the canonical NaN). One instruction where tf32_bits
+// takes seven integer ones.
+__device__ __forceinline__ uint32_t tf32_rn(float v) {
+  uint32_t r;
+  asm("cvt.rn.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
+  return r;
+}
+
 // Lane (g, t)'s share of a 64-channel row: p[i] = channels 16i + 4t ..
 // 16i + 4t + 3 (kStream: past L1, for rows read once).
 template <bool kStream = false>
@@ -770,17 +811,20 @@ __device__ __forceinline__ void load_share4(float4 (&p)[4], const float* __restr
   for (int i = 0; i < 4; ++i) p[i] = kStream ? __ldcs(r4 + 4 * i) : __ldg(r4 + 4 * i);
 }
 
-// What the TF32 stage kernel's lane holds for the whole kernel: BN_a at its
-// 16 input channels, BN_b of the 2 channels it writes.
+// What the TF32 stage kernel's lane holds for the whole kernel: where BN_a
+// at its 16 input channels lies in shared memory (sa[4i], ta[4i]: channels
+// 16i + 4t .. + 3; in registers they would take 32 a lane), BN_b of the 2
+// channels it writes.
 struct Tf32Lane {
-  float4 sa[4], ta[4];
+  const float4* sa;
+  const float4* ta;
   float osc[2], osh[2];
   int g, t, lane;
 };
 
 // The bf16 kernel's walk (bf16_walk) with TF32 fragments: w2f is W2^T in
 // fragment order in shared memory, w2f[(8m + s) * 32 + lane] lane (g, t)'s
-// A fragment of m-tile m at k-step s.
+// A fragment of m-tile m at k-step s (see the design note above).
 template <bool kMaxFirst>
 __device__ __forceinline__ void tf32_walk(const Tf32Lane& L, const float4* __restrict__ w2f,
                                           const float* __restrict__ table,
@@ -805,6 +849,9 @@ __device__ __forceinline__ void tf32_walk(const Tf32Lane& L, const float4* __res
   }
   int nb1 = unit_index<true>(idx, min(q1, hi - 1), c1, K, N, lane);
   const unsigned long long nmagic = ~0ull / (unsigned)N + 1;  // ceil(2^64 / N) for N > 1
+  float4 w0[8];  // m-tile 0's A fragments, read from shared memory once for the walk
+#pragma unroll
+  for (int s = 0; s < 8; ++s) w0[s] = w2f[s * kLanes + lane];
 
   float mx[4][2];  // running max over rows of channels 16m + g + 8h
 #pragma unroll
@@ -817,32 +864,30 @@ __device__ __forceinline__ void tf32_walk(const Tf32Lane& L, const float4* __res
     const int nb2 = unit_index<true>(idx, min(q2, hi - 1), c2, K, N, lane);
     const size_t cloud = N > 1 ? __umul64hi((unsigned long long)qv, nmagic) : qv;
     const float* tab1 = table + cloud * N * kC;
+    // n-tile by n-tile: its rows activated and rounded, then multiplied
+    // m-tile by m-tile, k-step by k-step; each accumulator takes k-steps
+    // 0..7 in order from zero, each running max the n-tiles in order
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       uint32_t b[8][2];  // k-step 2i + v: channels 16i + 4t + 2v (k row t), + 1 (k row t + 4)
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        const float4 v = x[j][i], bb = bv[i], s = L.sa[i], h = L.ta[i];
-        b[2 * i][0] = tf32_bits(lrelu(affine(__fadd_rn(v.x, bb.x), s.x, h.x)));
-        b[2 * i][1] = tf32_bits(lrelu(affine(__fadd_rn(v.y, bb.y), s.y, h.y)));
-        b[2 * i + 1][0] = tf32_bits(lrelu(affine(__fadd_rn(v.z, bb.z), s.z, h.z)));
-        b[2 * i + 1][1] = tf32_bits(lrelu(affine(__fadd_rn(v.w, bb.w), s.w, h.w)));
+        const float4 v = x[j][i], bb = bv[i], s = L.sa[4 * i], h = L.ta[4 * i];
+        b[2 * i][0] = tf32_rn(lrelu(affine(__fadd_rn(v.x, bb.x), s.x, h.x)));
+        b[2 * i][1] = tf32_rn(lrelu(affine(__fadd_rn(v.y, bb.y), s.y, h.y)));
+        b[2 * i + 1][0] = tf32_rn(lrelu(affine(__fadd_rn(v.z, bb.z), s.z, h.z)));
+        b[2 * i + 1][1] = tf32_rn(lrelu(affine(__fadd_rn(v.w, bb.w), s.w, h.w)));
       }
-      if (j == 3) load_share4<true>(bv, bvec + (size_t)qv * kC, t);  // the next unit's bvec
-      // the next unit's n-tile j, into the registers this one's was read from
-      load_share4(x[j], tab1 + (size_t)__shfl_sync(kFull, nb1, 8 * j + g) * kC, t);
-      float d[4][4];  // output channels 16m + g (d[m][0..1]), + 8 (d[m][2..3]); rows 2t, 2t + 1
 #pragma unroll
       for (int m = 0; m < 4; ++m) {
-        d[m][0] = d[m][1] = d[m][2] = d[m][3] = 0.f;
+        // channels 16m + g (d[0..1]), + 8 (d[2..3]); rows 2t, 2t + 1
+        float d[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-        for (int s = 0; s < 8; ++s) mma_tf32(d[m], w2f[(8 * m + s) * kLanes + lane], b[s][0], b[s][1]);
-      }
-#pragma unroll
-      for (int m = 0; m < 4; ++m)
+        for (int s = 0; s < 8; ++s)
+          mma_tf32(d, m == 0 ? w0[s] : w2f[(8 * m + s) * kLanes + lane], b[s][0], b[s][1]);
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
-          float v0 = d[m][2 * h], v1 = d[m][2 * h + 1];
+          float v0 = d[2 * h], v1 = d[2 * h + 1];
           if (!kMaxFirst) {  // BN_b's vectors read where they are used: a rare path
             const int ch = 16 * m + g + 8 * h;
             const float s0 = ld_in_place(sb + ch), sh = ld_in_place(tb + ch);
@@ -852,7 +897,14 @@ __device__ __forceinline__ void tf32_walk(const Tf32Lane& L, const float4* __res
           }
           mx[m][h] = fmaxf(mx[m][h], fmaxf(v0, v1));
         }
+      }
     }
+    // the next unit's rows and bvec, loaded once the products are issued:
+    // while those run, x's 64 registers are free
+    load_share4<true>(bv, bvec + (size_t)qv * kC, t);
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      load_share4(x[j], tab1 + (size_t)__shfl_sync(kFull, nb1, 8 * j + g) * kC, t);
     // the max over t, the write at the query's last unit: as bf16_walk
 #pragma unroll
     for (int m = 0; m < 4; ++m)
@@ -894,6 +946,10 @@ edgeconv_stage_tf32_kernel(const float* __restrict__ table,  // (B, N, 64)
   // W2^T's A fragments (m16n8k8 tf32: a0 (row g, col t), a1 (g + 8, t), a2
   // (g, t + 4), a3 (g + 8, t + 4)), rounded to TF32, negated where flipped
   __shared__ float4 w2f[4 * 8 * kLanes];
+  __shared__ float4 bn_a[2 * kC / 4];  // BN_a's scale, then its shift
+  if (threadIdx.x < 2 * kC / 4)
+    bn_a[threadIdx.x] = __ldg(reinterpret_cast<const float4*>(threadIdx.x < kC / 4 ? sa : ta) +
+                              threadIdx.x % (kC / 4));
   for (int i = threadIdx.x; i < 4 * 8 * kLanes; i += blockDim.x) {
     const int l = i % kLanes, m = i / kLanes / 8, s = i / kLanes % 8;
     const int g = l >> 2, t = l & 3;
@@ -917,8 +973,8 @@ edgeconv_stage_tf32_kernel(const float* __restrict__ table,  // (B, N, 64)
 
   Tf32Lane L;
   L.g = g, L.t = t, L.lane = lane;
-  load_share4(L.sa, sa, t);
-  load_share4(L.ta, ta, t);
+  L.sa = bn_a + t;
+  L.ta = bn_a + kC / 4 + t;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {  // the two channels this lane writes, 16t + g + 8h
     const int ch = 16 * t + g + 8 * h;

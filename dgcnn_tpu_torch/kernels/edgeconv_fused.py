@@ -55,7 +55,8 @@ BF16_WARPS = 8
 # the mma fragments), so L1 takes all of the SM's on-chip memory
 BF16_SMEM_BYTES = 0
 # the TF32 stage kernel's warps a block (csrc: kTfWarps), one block an SM
-# (W2^T's TF32 fragments take 16 KB of its shared memory)
+# (254 registers a thread; W2^T's TF32 fragments and BN_a's vectors take
+# 16,896 bytes of its shared memory)
 TF32_WARPS = 8
 H100_SMS = 132  # the H100 SXM's SMs
 

@@ -3,6 +3,7 @@ a constant or a line changed) and time them beside each other, on one GPU.
 
     python scripts/exp_edgeconv_stage_variants.py [--ceiling] [NAME ...]
     python scripts/exp_edgeconv_stage_variants.py --bf16 [--root DIR] [--sharing] [NAME ...]
+    python scripts/exp_edgeconv_stage_variants.py --tf32 [--root DIR] [--sharing] [NAME ...]
 
 Each variant is a list of text replacements (``shipped`` has none) applied
 to a copy of ``csrc/`` under ``build/edgeconv_stage_variants/NAME/``; the
@@ -31,9 +32,15 @@ grid apart, cp.async staging, no ``launch_geometry_bf16`` in its wrapper)
 gets ``FIRST_BF16_VARIANTS``, one with the present design
 ``BF16_VARIANTS``. ``--sharing`` also prints, per case, the share of
 distinct rows among Q = 32, 64 and 128 consecutive queries' indices
-(``scripts/torch_edgeconv_fused.py::sharing``). Without names it runs
-every variant of the chosen set. Prints one JSON line with the card's name
-and power limit.
+(``scripts/torch_edgeconv_fused.py::sharing``). ``--tf32`` does the same
+for the TF32 kernel (``edgeconv_stage_tf32_kernel``) with
+``TF32_VARIANTS``: what each part costs, the W2 fragments' shared-memory
+reads, the activations rounded by the integer rule, how many fragments
+the lanes hold in registers, the next unit's rows loaded before the
+products, 12 warps a block, and the unit's n-tiles activated two or four
+at a time and then multiplied m-tile by m-tile (the order the redesign
+tried first). Without names it runs every variant of the chosen set.
+Prints one JSON line with the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -244,14 +251,150 @@ BF16_VARIANTS = {
                  "#pragma unroll\n        for (int m = 0; m < 4; ++m) "
                  "mma_bf16(d[m], L.a[m][s], b[s][0], b[s][1]);")],
 }
+# The TF32 design: each part left out as for BF16_VARIANTS (the products
+# replaced by a xor that keeps their operands alive); no shared reads in the
+# unit loop (every m-tile multiplied by m-tile 0's fragments, held in
+# registers); the activations rounded by the integer rule (tf32_bits, seven
+# integer instructions) instead of the card's conversion; none, a half, one
+# and a half or two m-tiles' fragments held in registers for the walk
+# instead of one; the next unit's rows loaded as the first design did,
+# each n-tile's right after its activation, before its products, instead
+# of after all the products (more registers in flight); 12 warps a
+# block (168 registers a thread) with no fragment held; and the unit's
+# n-tiles activated two or four at a time and then multiplied m-tile by
+# m-tile, k-step by k-step, n-tile by n-tile (at four, each fragment read
+# once a unit whatever the compiler keeps)
+_TF32_ACT = """        b[2 * i][0] = tf32_rn(lrelu(affine(__fadd_rn(v.x, bb.x), s.x, h.x)));
+        b[2 * i][1] = tf32_rn(lrelu(affine(__fadd_rn(v.y, bb.y), s.y, h.y)));
+        b[2 * i + 1][0] = tf32_rn(lrelu(affine(__fadd_rn(v.z, bb.z), s.z, h.z)));
+        b[2 * i + 1][1] = tf32_rn(lrelu(affine(__fadd_rn(v.w, bb.w), s.w, h.w)));"""
+_TF32_BARE = """        b[2 * i][0] = __float_as_uint(v.x);
+        b[2 * i][1] = __float_as_uint(v.y);
+        b[2 * i + 1][0] = __float_as_uint(v.z);
+        b[2 * i + 1][1] = __float_as_uint(v.w);"""
+_TF32_A = "m == 0 ? w0[s] : w2f[(8 * m + s) * kLanes + lane]"
+_TF32_MMA = f"          mma_tf32(d, {_TF32_A}, b[s][0], b[s][1]);"
+_TF32_XOR = ("          {\n            const float4 a = " + _TF32_A + ";\n"
+             "            d[s % 4] = __uint_as_float(__float_as_uint(d[s % 4]) ^ "
+             "__float_as_uint(a.x) ^ __float_as_uint(a.y) ^ __float_as_uint(a.z) ^ "
+             "__float_as_uint(a.w) ^ b[s][0] ^ b[s][1]);\n          }")
+_TF32_NEXT_LOAD = ("      load_share4(x[j], tab1 + (size_t)__shfl_sync(kFull, nb1, 8 * j + g) * kC, "
+                   "t);")
+_TF32_HELD = ("  float4 w0[8];  // m-tile 0's A fragments, read from shared memory once for the "
+              "walk\n#pragma unroll\n  for (int s = 0; s < 8; ++s) w0[s] = w2f[s * kLanes + lane];\n")
+_TF32_LOADS = ("    load_share4<true>(bv, bvec + (size_t)qv * kC, t);\n#pragma unroll\n"
+               "    for (int j = 0; j < 4; ++j)\n" + _TF32_NEXT_LOAD + "\n")
+_TF32_UNIT = "    // n-tile by n-tile: its rows activated and rounded, then multiplied\n"
+_TF32_BODY_END = "          mx[m][h] = fmaxf(mx[m][h], fmaxf(v0, v1));\n        }\n      }\n    }\n"
+
+
+def _tf32_held(n: int) -> list[tuple[str, str]]:
+    """The first ``n`` of the 32 A fragments (k-step by k-step, m-tile by
+    m-tile) held in registers for the walk, instead of m-tile 0's 8."""
+    if n == 0:
+        return [(_TF32_HELD, ""), (_TF32_A, "w2f[(8 * m + s) * kLanes + lane]")]
+    return [(_TF32_HELD, f"  float4 w0[{n}];\n#pragma unroll\n  for (int f = 0; f < {n}; ++f) "
+                         "w0[f] = w2f[f * kLanes + lane];\n"),
+            (_TF32_A, f"8 * m + s < {n} ? w0[8 * m + s < {n} ? 8 * m + s : 0] : "
+                      "w2f[(8 * m + s) * kLanes + lane]")]
+
+
+def _tf32_m_outer(n: int) -> list[tuple[str, str]]:
+    """The unit's n-tiles activated ``n`` at a time (2 or 4), then
+    multiplied m-tile by m-tile, k-step by k-step, n-tile by n-tile: each
+    fragment read from shared memory once a group; the running max still
+    folded over n-tiles in order."""
+    old_start = _TF32_UNIT
+    new = f"""#pragma unroll
+    for (int jp = 0; jp < 4; jp += {n}) {{
+      uint32_t b[4][8][2];
+#pragma unroll
+      for (int j = jp; j < jp + {n}; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {{
+          const float4 v = x[j][i], bb = bv[i], s = L.sa[4 * i], h = L.ta[4 * i];
+          b[j][2 * i][0] = tf32_rn(lrelu(affine(__fadd_rn(v.x, bb.x), s.x, h.x)));
+          b[j][2 * i][1] = tf32_rn(lrelu(affine(__fadd_rn(v.y, bb.y), s.y, h.y)));
+          b[j][2 * i + 1][0] = tf32_rn(lrelu(affine(__fadd_rn(v.z, bb.z), s.z, h.z)));
+          b[j][2 * i + 1][1] = tf32_rn(lrelu(affine(__fadd_rn(v.w, bb.w), s.w, h.w)));
+        }}
+#pragma unroll
+      for (int m = 0; m < 4; ++m) {{
+        float d[4][4];
+#pragma unroll
+        for (int j = jp; j < jp + {n}; ++j) d[j][0] = d[j][1] = d[j][2] = d[j][3] = 0.f;
+#pragma unroll
+        for (int s = 0; s < 8; ++s) {{
+          const float4 a = {_TF32_A};
+#pragma unroll
+          for (int j = jp; j < jp + {n}; ++j) mma_tf32(d[j], a, b[j][s][0], b[j][s][1]);
+        }}
+#pragma unroll
+        for (int j = jp; j < jp + {n}; ++j)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {{
+            float v0 = d[j][2 * h], v1 = d[j][2 * h + 1];
+            if (!kMaxFirst) {{
+              const int ch = 16 * m + g + 8 * h;
+              const float s0 = ld_in_place(sb + ch), sh = ld_in_place(tb + ch);
+              const float sc = regular(s0, sh) && s0 < 0.f ? -s0 : s0;
+              v0 = lrelu(affine(v0, sc, sh));
+              v1 = lrelu(affine(v1, sc, sh));
+            }}
+            mx[m][h] = fmaxf(mx[m][h], fmaxf(v0, v1));
+          }}
+      }}
+    }}
+"""
+    return [("__BLOCK__", (old_start, _TF32_BODY_END, new))]
+
+
+TF32_VARIANTS = {
+    "shipped": [],
+    "diag_no_gather": [(_TF32_NEXT_LOAD, "      (void)tab1;")],
+    "diag_no_activation": [(_TF32_ACT, _TF32_BARE)],
+    "diag_no_product": [(_TF32_MMA, _TF32_XOR)],
+    "diag_no_lds": [(_TF32_A, "w0[s]")],
+    "bits": [(_TF32_ACT, _TF32_ACT.replace("tf32_rn(", "tf32_bits("))],
+    "held0": _tf32_held(0),
+    "held4": _tf32_held(4),
+    "held12": _tf32_held(12),
+    "held16": _tf32_held(16),
+    "early_loads": [(_TF32_LOADS, ""), (_TF32_ACT + "\n      }\n", _TF32_ACT + "\n      }\n"
+                    "      if (j == 3) load_share4<true>(bv, bvec + (size_t)qv * kC, t);\n"
+                    "  " + _TF32_NEXT_LOAD + "\n")],
+    "held0_warps12": _tf32_held(0) + [("constexpr int kTfWarps = 8;",
+                                       "constexpr int kTfWarps = 12;")],
+    "m_outer": _tf32_m_outer(4),
+    "m_outer2": _tf32_m_outer(2),
+}
+# the warps a block each variant is also timed at, beside the wrapper's 8
+TF32_VARIANT_WARPS = {"held0_warps12": 12}
 # --bf16, the present design: (warps, queries a block) beside the wrapper's,
 # 0 for the wrapper's range
 BF16_GEOMETRIES = [(4, 0), (6, 0), (8, 64), (8, 212)]
 
 
-def _start_build(name: str, patches: list[tuple[str, str]], out_dir: Path):
+def _blocks(patches: list) -> list[tuple[str, str]]:
+    """The patches with each block patch, ``("__BLOCK__", (start, end,
+    new))``, made a text patch: the imported source's text from ``start``
+    through the first ``end`` after it, replaced by ``new``."""
+    from dgcnn_tpu_torch.kernels import _build
+
+    src = (_build.CSRC / "edgeconv_fused.cu").read_text()
+    out = []
+    for old, new in patches:
+        if old == "__BLOCK__":
+            start, end, new = new
+            i = src.index(start)
+            old = src[i:src.index(end, i) + len(end)]
+        out.append((old, new))
+    return out
+
+
+def _start_build(name: str, patches: list, out_dir: Path):
     """A patched copy of the imported package's ``csrc/`` (``--root``'s)."""
-    return kv.start_build(name, patches, out_dir, ("edgeconv_fused.cu",),
+    return kv.start_build(name, _blocks(patches), out_dir, ("edgeconv_fused.cu",),
                           ("edgeconv_fused.cu",))
 
 
@@ -272,6 +415,7 @@ def main(argv=None) -> int:
     ap.add_argument("names", nargs="*")
     ap.add_argument("--ceiling", action="store_true")
     ap.add_argument("--bf16", action="store_true", help="the bf16 kernel's variants")
+    ap.add_argument("--tf32", action="store_true", help="the TF32 kernel's variants")
     ap.add_argument("--root", default=str(HERE), help="checkout whose kernel is patched")
     ap.add_argument("--sharing", action="store_true", help="distinct rows among queries")
     args = ap.parse_args(argv)
@@ -291,7 +435,7 @@ def main(argv=None) -> int:
 
     if not Path(dgcnn_tpu_torch.__file__).resolve().is_relative_to(root):
         raise RuntimeError(f"imported {dgcnn_tpu_torch.__file__}, not the port under {root}")
-    if args.bf16:
+    if args.bf16 or args.tf32:
         return _main_bf16(args, cs, mod, _build)
     variants = {name: VARIANTS[name] for name in (args.names or VARIANTS)}
     out_dir = HERE / "build" / "edgeconv_stage_variants"
@@ -328,13 +472,19 @@ def main(argv=None) -> int:
 
 
 def _main_bf16(args, cs, mod, _build) -> int:
-    """The bf16 kernel's variants on the four production cases."""
+    """The bf16 (or, with ``--tf32``, the TF32) kernel's variants on the four
+    production cases."""
     import torch
 
-    first = not hasattr(mod, "launch_geometry_bf16")
-    table = FIRST_BF16_VARIANTS if first else BF16_VARIANTS
+    tf32 = args.tf32
+    first = not tf32 and not hasattr(mod, "launch_geometry_bf16")
+    table = TF32_VARIANTS if tf32 else FIRST_BF16_VARIANTS if first else BF16_VARIANTS
     variants = {name: table[name] for name in (args.names or table)}
-    out_dir = HERE / "build" / ("edgeconv_bf16_first" if first else "edgeconv_bf16_variants")
+    out_dir = HERE / "build" / ("edgeconv_tf32_variants" if tf32 else "edgeconv_bf16_first"
+                                if first else "edgeconv_bf16_variants")
+    kernel = "edgeconv_stage_tf32_kernel" if tf32 else "edgeconv_stage_bf16_kernel"
+    launch = mod.launch_stage_tf32 if tf32 else getattr(mod, "launch_stage_bf16", None)
+    wrapper = mod.edgeconv_fused_stage_tf32 if tf32 else mod.edgeconv_fused_stage_bf16
     started = {name: _start_build(name, patches, out_dir)
                for name, patches in variants.items()}
     dev = torch.device("cuda")
@@ -347,7 +497,7 @@ def _main_bf16(args, cs, mod, _build) -> int:
         vec = [case[key] for key in ("sa", "ta", "sb", "tb")]
         if first:
             return lambda: mod.launch_stage(t, i, bv, w2, vec, (12, 2), 0, bf16_mm=True)
-        return lambda: mod.launch_stage_bf16(t, i, bv, w2, vec, geometry)
+        return lambda: launch(t, i, bv, w2, vec, geometry)
 
     geometries = {"wrapper": None}
     if not first:
@@ -355,11 +505,10 @@ def _main_bf16(args, cs, mod, _build) -> int:
         warps, per = mod.launch_geometry_bf16(b, n, k, sms)
         geometries = {f"warps={w} per={p or per}": (w, p or per)
                       for w, p in [(warps, per), *BF16_GEOMETRIES]}
-    want = {label: mod.edgeconv_fused_stage_bf16(*cs.stage_args(case))
-            for label, case in cases.items()}
+    want = {label: wrapper(*cs.stage_args(case)) for label, case in cases.items()}
     results = {}
     for vname, build in started.items():
-        handle, lines = _finish_build(vname, build, "edgeconv_stage_bf16_kernel")
+        handle, lines = _finish_build(vname, build, kernel)
         print(vname, *lines, sep="\n  ", file=sys.stderr)
         _build._lib = handle
         try:
@@ -367,6 +516,10 @@ def _main_bf16(args, cs, mod, _build) -> int:
             for label, case in cases.items():
                 gs = (geometries.items() if vname == "shipped"
                       else list(geometries.items())[:1])
+                if tf32 and vname in TF32_VARIANT_WARPS:
+                    w = TF32_VARIANT_WARPS[vname]
+                    per = next(iter(geometries.values()))[1]
+                    gs = [*gs, (f"warps={w} per={per}", (w, per))]
                 for gname, geometry in gs:
                     run = launcher(case, geometry)
                     if not vname.startswith("diag_") and not torch.equal(run(), want[label]):
@@ -379,7 +532,7 @@ def _main_bf16(args, cs, mod, _build) -> int:
         print(f"{vname}: " + ", ".join(f"{k} {v:.4f}" for k, v in row.items()
                                        if isinstance(v, float)), file=sys.stderr)
     out = {"device": _smi(), "root": str(Path(args.root).resolve()),
-           "design": "first" if first else "present", "variants": results}
+           "kernel": kernel, "design": "first" if first else "present", "variants": results}
     if args.sharing:
         spec = importlib.util.spec_from_file_location(
             "torch_edgeconv_fused_sharing", HERE / "scripts" / "torch_edgeconv_fused.py")

@@ -2,6 +2,7 @@
 bit, on one card.
 
     python scripts/torch_forward_probs.py [--root DIR] [--label NAME] --out DIR
+        [--matmul_precision default|high|highest]
 
 ``--root`` is a checkout whose ``dgcnn_tpu_torch`` runs (default: this
 one); run it on two trees (e.g. the parent unpacked with ``git archive``
@@ -12,7 +13,9 @@ run writes each forward's probabilities there, the second holds its own
 seed=0)``) in the default configuration on a guarded and on an unguarded
 dispatch, the capped-only path, the parity mode, the packed mode and the
 bf16 serving configuration (``compute_dtype="bfloat16"``, guarded and
-unguarded).
+unguarded). ``--matmul_precision`` runs instead the default configuration
+at that product precision, guarded and unguarded ("default": the TF32
+conv operands and the TF32 stage kernel).
 Prints one JSON line: the card's ``nvidia-smi`` name and power limit, the
 root, and for each forward the tree it was held equal to (null where it
 was written).
@@ -42,6 +45,8 @@ def main(argv=None) -> int:
     ap.add_argument("--root", default=str(HERE), help="checkout whose port runs")
     ap.add_argument("--label", default="", help="a name for the root in the output")
     ap.add_argument("--out", required=True, help="directory of the probabilities held")
+    ap.add_argument("--matmul_precision", choices=("default", "high", "highest"), default=None,
+                    help="hold the default configuration's forwards at this precision instead")
     args = ap.parse_args(argv)
     root = str(Path(args.root).resolve())
     sys.path.insert(0, root)  # the measured package first
@@ -72,12 +77,18 @@ def main(argv=None) -> int:
         "bf16": DGCNNConfig(k=30, emb_dims=1024, compute_dtype="bfloat16"),
     }
     weights = init_dgcnn(configs["default"], torch.Generator().manual_seed(1)).state_dict()
+    guarded = ("default", "bf16")
+    if args.matmul_precision:
+        name = f"default {args.matmul_precision}"
+        configs = {name: DGCNNConfig(k=30, emb_dims=1024,
+                                     matmul_precision=args.matmul_precision)}
+        guarded = (name,)
     held = {}
     for name, cfg in configs.items():
         model = DGCNN(cfg)
         model.load_state_dict(weights)
         model.to("cuda")
-        modes = {"guarded": 1, "unguarded": 0} if name in ("default", "bf16") else {"": None}
+        modes = {"guarded": 1, "unguarded": 0} if name in guarded else {"": None}
         for mode, band_mode in modes.items():
             label = f"forward {name} {mode}".strip()
             kw = {} if band_mode is None else {"band_mode": band_mode}

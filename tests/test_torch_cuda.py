@@ -648,13 +648,15 @@ def _assert_tf32_close(got, table, idx, bvec, w2, sa, ta, sb, tb):
     assert (got - f32).abs().max().item() > 1e-4
 
 
-@pytest.mark.parametrize("b, n, k", [(2, 1200, 30), (1, 1001, 1), (1, 1001, 32),
-                                     (1, 1001, 33), (1, 1001, 64), (8, 50, 30)])
+@pytest.mark.parametrize("b, n, k", BF16_SHAPES)
 def test_fused_stage_tf32_kernel_geometries(dev, b, n, k):
     """The TF32 kernel through the stage wrapper (counted there, not as the
-    FP32 kernel) and at other geometries (1 and 3 warps, one query a block,
-    one block for all): the same outputs bit for bit, within the tolerance
-    of the plain version, with a zero BN_b scale too."""
+    FP32 kernel) and at row 12's other geometries (1 and 3 warps, one query
+    a block, ranges of 7 and 64, one block for all): the same outputs bit
+    for bit, within the tolerance of the plain version, at k = 1, 20, 32,
+    33, 40 and 64 and on clouds smaller than a block's range, on uniform
+    indices with some outside [0, n) (clamped), with a zero BN_b scale too
+    (the warp then applies BN_b to every row before the max)."""
     table, idx, bvec, w2, vectors = _bf16_operands(dev, b, n, k, 200 + k)
     for zero in (False, True):
         if zero:
@@ -665,11 +667,59 @@ def test_fused_stage_tf32_kernel_geometries(dev, b, n, k):
         assert (edgeconv_fused_stage.launches, edgeconv_fused_stage_tf32.launches) == (
             before[0], before[1] + 1)
         _assert_tf32_close(got, table, idx, bvec, w2, *vectors)
-        for g in ((1, 7), (3, 64), (8, 1), (8, 1 << 30)):
+        per = launch_geometry_bf16(b, n, k, torch.cuda.get_device_properties(dev)
+                                   .multi_processor_count)[1]
+        for g in BF16_GEOMETRIES:
+            g = (g[0], g[1] or per)
             assert torch.equal(launch_stage_tf32(table, idx, bvec, w2, vectors, g), got), g
-    for geometry in ((0, 10), (9, 10), (8, 0)):
+    for geometry in ((0, 10), (9, 10), (16, 10), (8, 0), (8, -1)):
         with pytest.raises(RuntimeError, match="edgeconv_fused_stage_tf32"):
             launch_stage_tf32(table, idx, bvec, w2, vectors, geometry)
+
+
+@pytest.mark.parametrize("signs", ["negative", "positive", "mixed"])
+def test_fused_stage_tf32_kernel_bn_b_paths_agree(dev, signs):
+    """BN_b's scales all negative (every W2 column loaded negated, the max
+    taken before BN_b on -h), all positive, or of both signs: within the
+    tolerance of the plain version; and a zero scale in one channel, which
+    sends the whole warp down the per-row path (BN_b and the LeakyReLU on
+    every row, then the max), leaves the other 63 channels' outputs equal
+    bit for bit (the maps are monotone, and so is their rounding)."""
+    table, idx, bvec, w2, (sa, ta, sb, tb) = _bf16_operands(dev, 2, 1200, 30, 9)
+    if signs != "mixed":
+        sb = sb.abs() if signs == "positive" else -sb.abs()
+    got = edgeconv_fused_stage_tf32(table, idx, bvec, w2, sa, ta, sb, tb)
+    _assert_tf32_close(got, table, idx, bvec, w2, sa, ta, sb, tb)
+    zero = sb.clone()
+    zero[17] = 0.0
+    per_row = edgeconv_fused_stage_tf32(table, idx, bvec, w2, sa, ta, zero, tb)
+    rest = [c for c in range(64) if c != 17]
+    assert torch.equal(per_row[..., rest], got[..., rest])
+    assert torch.equal(per_row[..., 17], lrelu(tb[17]).expand_as(per_row[..., 17]))
+
+
+def test_fused_stage_tf32_kernel_nan_in_w2(dev):
+    """A NaN in W2 makes its output channel's products NaN on every row, and
+    fmaxf skips NaN rows: that channel's output is -inf, whether its column
+    is flipped or not (the plain version's amax gives NaN there); the
+    other channels stay within the tolerance. The NaNs carry their payload
+    in the 13 low bits alone, which the tensor cores do not read: the
+    kernel makes them the canonical NaN before rounding, else they would
+    multiply as inf."""
+    table, idx, bvec, w2, (sa, ta, sb, tb) = _bf16_operands(dev, 2, 1200, 33, 10)
+    flipped = int(torch.nonzero(sb < 0)[0])
+    kept = int(torch.nonzero(sb > 0)[0])
+    w2 = w2.clone()
+    bits = w2.view(torch.int32)  # the NaNs' bits set as integers: no float conversion
+    bits[5, flipped], bits[40, kept] = 0x7F800001, 0x7F800FFF
+    assert torch.isnan(w2[5, flipped]) and torch.isnan(w2[40, kept])
+    got = edgeconv_fused_stage_tf32(table, idx, bvec, w2, sa, ta, sb, tb)
+    for c in (flipped, kept):
+        assert torch.equal(got[..., c], torch.full_like(got[..., c], float("-inf")))
+    rest = [c for c in range(64) if c not in (flipped, kept)]
+    want = edgeconv_fused_stage_tf32_plain(table, idx, bvec, w2, sa, ta, sb, tb)
+    tol = stage_tf32_tolerance(table, idx, bvec, w2, sa, ta, sb, tb)
+    assert ((got - want).abs()[..., rest] <= tol[..., rest]).all()
 
 
 def test_fused_stage_tf32_kernel_is_exact_on_integers(dev):
@@ -785,6 +835,38 @@ def test_stage_kernels_give_the_first_design_bits(dev, case):
     digests = tuple(hashlib.sha256(t.contiguous().cpu().numpy().tobytes()).hexdigest()
                     for t in got)
     assert digests == STAGE_DIGESTS[case]
+
+
+# SHA-256 of the TF32 stage kernel's outputs on the same cases, written by
+# its first design (each lane's W2 fragments read per n-tile in the source,
+# the activations rounded by the integer rule, BN_a in registers): every
+# later design must give its bits (the same products, each accumulator's
+# k-steps in the same order).
+TF32_STAGE_DIGESTS = {
+    "capped C=64": "84a2c236ac9b74eb35ed89323cfd254cca182a5f7e348e642d7aff49551f082f",
+    "banded stage 1 (blocks, band 2048)":
+        "f4c4fffa1d140ce3f17726821b27f19f0a6e670b364979a18532ab82f2721d6d",
+    "banded stage 2 (C=64, band 4096)":
+        "1833b3da02e520e3928f87a828d9a55920d642f959f2ef156b3326aefab0d0eb",
+    "ragged B=1 N=1001 k=20": "a1327b535f1d942a9ca5de142dbe1af74333f4c031b21859e0a64c20a42cd9d0",
+    "ragged B=1 N=1001 k=30": "ae1841e4d35c30c3191f748877ec0d725ad8bce5c62631d862342df06e580912",
+    "ragged B=1 N=1001 k=40": "0d3cdf4d2aaa041f6b2bf5e01da6a349b99fb6639d4fff019b2b2ec2fc38dfd8",
+}
+
+
+@pytest.mark.parametrize("case", list(TF32_STAGE_DIGESTS))
+def test_tf32_stage_kernel_gives_the_first_design_bits(dev, case):
+    import hashlib
+    import importlib.util
+    from pathlib import Path
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke_tf32_digests", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    got = edgeconv_fused_stage_tf32(*cs.stage_args(cs.stage_cases(dev)[case]))
+    digest = hashlib.sha256(got.contiguous().cpu().numpy().tobytes()).hexdigest()
+    assert digest == TF32_STAGE_DIGESTS[case]
 
 
 def test_bf16_model_on_cuda_matches_cpu_plain_versions(dev):
