@@ -176,7 +176,10 @@ Phases, each of which raises on failure (exit code 1, no result line):
    recall 0.95, run after phase 10): the kernel against its plain version
    bit for bit on integer clouds (``APPROX_INT_CASES``: C=4 and C=64 at the
    production shape, L=896 with a short last chunk; L=N; N=2000, L=1024;
-   k=16 and 64; 1000 ``queries=`` rows), at least 0.9999 index agreement on
+   k=16 and 64; 1000 ``queries=`` rows), the first design's SHA-256
+   digests (``APPROX_DIGESTS``: ``make_blocks`` at C=4, normal C=64, 1000
+   queries, a cloud with inf / nan coordinates), the kernel's registers
+   and spills (the build log), at least 0.9999 index agreement on
    ``make_blocks``' floats, and on the approx forward's own three calls
    each call's device-only time, wrapper time, plain time, bound and recall
    against the exact kNN; the approx forward within 1e-3 of the CPU plain
@@ -4107,6 +4110,37 @@ APPROX_INT_CASES = (
 )
 APPROX_FLOAT_AGREEMENT = 0.9999  # make_blocks' floats: index agreement with the plain version
 APPROX_TILE = (300, (120.0, 60.0), 70000)  # the served tile: seed, extent, points
+# SHA-256 of the approximate kNN kernel's indices (int32 bytes) on each
+# input of approx_digest_inputs, written by its first design (a thread a
+# query, sorted register lists) on the H100 by
+# scripts/exp_knn_approx_variants.py --parent on that tree: every later
+# design must give its bits, floats and non-finite scores included
+APPROX_DIGESTS = {
+    "blocks C=4": "8864bf693f1982468ac195ebf0a94d965449d5cd8cde16d27d1754cba9f5a6c2",
+    "normal C=64": "5d4151c0809f25ffdf56c821be002b58af807b37f82c9dfe1a07ba4b3aa7e8cb",
+    "1000 queries C=64": "37c96100c5a2aa3162c9c446d46ce8cc8dd6760ca2d1486185519817055c1156",
+    "non-finite C=4": "a11c77b2e30e43b3e2e2ccee333da1a6dcba940cdf7f439d7609bd0642c5c440",
+}
+
+
+def approx_digest_inputs() -> dict:
+    """The inputs of :data:`APPROX_DIGESTS`, as numpy ``(x, queries or
+    None, k)``: ``make_blocks`` (B, N) at C=4 (the forward's stage 1),
+    standard-normal C=64 at (2, 7000), 1000 standard-normal C=64 queries
+    against that cloud, and ``make_blocks`` (2, 3000) with some coordinates
+    +-inf or NaN (L = 768: -inf, +inf and NaN scores, a NaN at chunk 0
+    and at later chunks, queries whose every winner is NaN)."""
+    rng = np.random.default_rng(22)
+    normal = rng.standard_normal((2, N, 64)).astype(np.float32)
+    queries = rng.standard_normal((2, 1000, 64)).astype(np.float32)
+    odd = make_blocks(2, 3000, seed=22)
+    for value in (np.inf, -np.inf, np.nan):
+        at = rng.integers(0, odd.size, 40)
+        odd.reshape(-1)[at] = value
+    return {"blocks C=4": (make_blocks(B, N, seed=0), None, K),
+            "normal C=64": (normal, None, K),
+            "1000 queries C=64": (normal, queries, K),
+            "non-finite C=4": (odd, None, K)}
 
 
 def _recall(got, exact) -> float:
@@ -4114,13 +4148,37 @@ def _recall(got, exact) -> float:
     return (got[..., :, None] == exact[..., None, :]).any(-1).float().mean().item()
 
 
+def approx_digests_held() -> dict:
+    """The approximate kNN kernel's indices on each input of
+    :func:`approx_digest_inputs`, held to :data:`APPROX_DIGESTS` (the first
+    design's bits, floats and non-finite scores included)."""
+    import hashlib
+
+    import torch
+
+    from dgcnn_tpu_torch.kernels.knn_approx import knn_approx
+
+    got = {}
+    for label, (x, q, k) in approx_digest_inputs().items():
+        out = knn_approx(torch.from_numpy(x).to("cuda"), k,
+                         queries=None if q is None else torch.from_numpy(q).to("cuda"))
+        got[label] = hashlib.sha256(out.cpu().numpy().tobytes()).hexdigest()
+        if got[label] != APPROX_DIGESTS[label]:
+            raise AssertionError(f"[approx] {label}: SHA-256 {got[label]} is not the first "
+                                 f"design's {APPROX_DIGESTS[label]}")
+    return got
+
+
 def phase_approx(tmp: str) -> dict:
     """Phase 14: ``knn_impl="approx"``. (a) The approximate kNN kernel
     (``kernels/knn_approx.py``) against its plain version
     (``ops/knn.py::knn(..., approx=True)``) on the card: bit for bit on the
-    integer cases of ``APPROX_INT_CASES``, at least ``APPROX_FLOAT_AGREEMENT``
-    index agreement on ``make_blocks``' floats, and on the approx forward's
-    own three calls (B=8, N=7000, k=30, L=896; stage 1 at C=4 on the x-sorted
+    integer cases of ``APPROX_INT_CASES``, the first design's bits
+    (``APPROX_DIGESTS``, floats and non-finite scores included) with the
+    kernel's registers and spills from the build log, at least
+    ``APPROX_FLOAT_AGREEMENT`` index agreement on ``make_blocks``' floats,
+    and on the approx forward's own three calls (B=8, N=7000, k=30, L=896;
+    stage 1 at C=4 on the x-sorted
     blocks, stages 2-3 at C=64) ``_compare``'s float check, each call's
     device-only time (``cuda_ms_many`` of the kernel alone), the wrapper's,
     the plain version's, the bound and the recall against the exact kNN of
@@ -4158,6 +4216,12 @@ def phase_approx(tmp: str) -> dict:
         res["int_cases"][label] = {"bins": approx_reduction_size(n, k, APPROX_RECALL),
                                    "bit_equal": True}
         log(f"[approx] {label}: bit for bit, L={res['int_cases'][label]['bins']}")
+    res["digests"] = approx_digests_held()
+    res["ptxas"] = {label: ptxas_of(fragment) for label, fragment in (
+        ("tiled C=64", "knn_approx_tiled_kernelILi64ELi32"),
+        ("fused C=4", "knn_approx_fused_kernelILi4ELi32"))}
+    log(f"[approx] SHA-256 of the first design's indices held on {list(res['digests'])}; "
+        f"ptxas: {res['ptxas']}")
 
     # the approx forward's own calls at full width
     cfg = DGCNNConfig(k=K, emb_dims=1024, knn_impl="approx")
@@ -4523,6 +4587,7 @@ def main() -> int:
         "c4": {k_: calls["stage 1 C=4"][k_] for k_ in timing},
         "stage3": {k_: calls["stage 3 C=64"][k_] for k_ in timing},
         "recall": {name: c["recall"] for name, c in calls.items()},
+        "ptxas": approx["ptxas"],
         "launches_per_forward": approx["launches_per_forward"],
         "launches_per_train_step": approx["train"]["launches_per_step"]})
     # phase 12: each ring kernel at the ring's shapes, and every row's

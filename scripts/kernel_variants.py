@@ -24,16 +24,17 @@ ERROR_SOURCE = "knn_capped.cu"  # holds dgcnn_error_string
 
 
 def start_build(name: str, patches: list[tuple[str, str]], out_dir: Path,
-                files: tuple[str, ...], sources: tuple[str, ...]):
-    """Copy ``csrc/`` to ``out_dir / name``, apply each ``(old, new)`` of
-    ``patches`` to the first of ``files`` that holds ``old`` (ValueError
-    where none does), and start one ``nvcc -c`` per source (``sources``
-    and :data:`ERROR_SOURCE`). Returns what :func:`finish_build` takes."""
+                files: tuple[str, ...], sources: tuple[str, ...], csrc: Path | None = None):
+    """Copy ``csrc/`` (or ``csrc``, another tree's) to ``out_dir / name``,
+    apply each ``(old, new)`` of ``patches`` to the first of ``files`` that
+    holds ``old`` (ValueError where none does), and start one ``nvcc -c``
+    per source (``sources`` and :data:`ERROR_SOURCE`). Returns what
+    :func:`finish_build` takes."""
     from dgcnn_tpu_torch.kernels import _build
 
     src_dir = out_dir / name
     shutil.rmtree(src_dir, ignore_errors=True)
-    shutil.copytree(_build.CSRC, src_dir)
+    shutil.copytree(csrc or _build.CSRC, src_dir)
     for old, new in patches:
         src = next((src_dir / f for f in files if old in (src_dir / f).read_text()), None)
         if src is None:

@@ -61,7 +61,7 @@ GROUPS = (
     ("knn_banded_tile_kernel", "knn_banded"),
     ("knn_capped_kernel", "knn_capped"),
     ("knn_exact_kernel", "knn_exact"),
-    ("knn_approx_kernel", "knn_approx"),
+    ("knn_approx_", "knn_approx"),  # the two-phase and the fused kernel
     ("gather_rows", "gather_rows"),
     ("scatter_rows", "scatter_add_rows"),
     ("scatter_tail", "scatter_stage_tail_rows"),

@@ -1506,6 +1506,20 @@ def test_approx_kernel_agrees_with_plain_on_floats(dev, c):
     assert (knn_approx(x, 30) == knn(x, 30, approx=True)).float().mean() >= 0.999
 
 
+def test_approx_kernel_gives_the_first_design_bits(dev):
+    """The kernel's indices on chip_smoke.approx_digest_inputs (make_blocks
+    at C=4, normal C=64, 1000 queries, a cloud with inf / nan coordinates)
+    hash to the first design's SHA-256 digests, chip_smoke.APPROX_DIGESTS."""
+    import importlib.util
+    from pathlib import Path
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke_approx_digests", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    assert set(cs.approx_digests_held()) == set(cs.APPROX_DIGESTS)
+
+
 def test_approx_kernel_refuses_what_it_does_not_take(dev):
     x, = _on(dev, sorted_blocks(1, 500, seed=6))
     for k in (0, 65):
