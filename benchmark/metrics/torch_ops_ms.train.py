@@ -1,0 +1,8 @@
+"""Device ms per train step in kernels that are neither the port's nor
+GEMMs (PyTorch's elementwise, reductions, the optimizer); traced."""
+
+from harness.readers import per_unit_ms
+
+
+def read(obs):
+    return per_unit_ms(obs, "torch_ops", "steps")
