@@ -188,6 +188,19 @@ Phases, each of which raises on failure (exit code 1, no result line):
    busy times beside the default forward's; one tile served and the same
    tile through ``--predict --knn_impl approx``, launch counts asserted.
    The phase prints its own time.
+15. the training tails (``kernels/edgeconv_train.py``, run after phase 7):
+   each kernel against its plain version at B=8, N=7000, k=30, C=64 (the
+   elementwise outputs bit for bit given the same channel vectors, the
+   sums over k against the plain outputs summed in slot order, the
+   channel sums within 2e-6 of float64's sum of magnitudes and bit for
+   bit from one call to the next), timed by ``cuda_ms_many`` beside its
+   byte bound and its plain version; one production train step's launches
+   (3 gathers, 1 + 1 scatters, as before; 5 channel sums, 2 applies, 3
+   max tails, 2 backward sums, 2 ``de`` and 2 max-tail ``de`` passes, the
+   recorder's ``edgeconv.train_tail.kernel`` 5 and ``.plain`` 0); the
+   step's loss and gradients against the same step with the tails' plain
+   versions on the card (the kNN replayed) within the train cells'
+   ``correct`` limits (loss 3e-6, worst leaf 1e-2), and both steps' times.
 
 The parity mode (``knn_impl="pallas"``: the exact banded kNN, stage 1 at
 band 2048, stages 2-3 at full width, 64 windows, cap 8) and the packed
@@ -268,6 +281,7 @@ that is removed at the end.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -1596,8 +1610,10 @@ def _counters():
     from dgcnn_tpu_torch.kernels.knn_packed import _knn_packed_split, knn_packed
     from dgcnn_tpu_torch.kernels.scatter_rows import (
         scatter_add_rows, scatter_stage_tail_rows)
+    from dgcnn_tpu_torch.kernels import edgeconv_train
 
-    return {"knn_capped": knn_capped, "edgeconv_fused_stage": edgeconv_fused_stage,
+    return {**{name: getattr(edgeconv_train, name) for name in TAIL_KERNELS},
+            "knn_capped": knn_capped, "edgeconv_fused_stage": edgeconv_fused_stage,
             "edgeconv_fused_stage_bf16": edgeconv_fused_stage_bf16,
             "edgeconv_fused_stage_tf32": edgeconv_fused_stage_tf32,
             "edgeconv_fused_extrema": edgeconv_fused_extrema,
@@ -1981,7 +1997,8 @@ def phase_train(tmp: str):
     if not all(np.isfinite(losses)) or not np.mean(losses[-3:]) < losses[0]:
         raise AssertionError(f"[train] the loss did not fall on a fixed batch: {losses}")
     if (step_launches["gather_rows"], step_launches["scatter_add_rows"],
-            step_launches["scatter_stage_tail_rows"], step_launches["knn_banded"]) != (3, 1, 1, 3):
+            step_launches["scatter_stage_tail_rows"], step_launches["knn_banded"]) != (3, 1, 1, 3) \
+            or any(step_launches[k_] != v for k_, v in TAIL_LAUNCHES.items()):
         raise AssertionError(f"[train] launches per step {step_launches}")
     # grad_accum=2: each micro-batch runs the path
     counters = reset_counters()
@@ -2032,6 +2049,234 @@ def phase_train(tmp: str):
             "launches_per_step": step_launches, "grad_rel_worst": rels[worst],
             "served_launches": served, "parity": train_parity(pts, labels, mask),
             "device_masks": train_device_masks(tmp, rooms)}
+
+
+TAIL_KERNELS = ("tail_sums", "tail_apply", "tail_max", "tail_grad_sums", "tail_grad",
+                "tail_max_grad")
+# each training tail wrapper's calls in one train step: stages 1-2 run
+# bn_lrelu_train and bn_lrelu_max_train, stage 3 the stage tail's forward
+TAIL_LAUNCHES = {"tail_sums": 5, "tail_apply": 2, "tail_max": 3, "tail_grad_sums": 2,
+                 "tail_grad": 2, "tail_max_grad": 2}
+
+
+@contextlib.contextmanager
+def plain_tails():
+    """The training tails' plain versions in place of the kernels inside
+    ``ops/edgeconv.py`` (on CUDA tensors too), for the step they replace."""
+    from dgcnn_tpu_torch.kernels import edgeconv_train as et
+    from dgcnn_tpu_torch.ops import edgeconv as ec
+
+    saved = {name: getattr(ec, name) for name in TAIL_KERNELS}
+    for name in TAIL_KERNELS:
+        setattr(ec, name, getattr(et, name + "_plain"))
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(ec, name, fn)
+
+
+def tail_cases(dev) -> dict:
+    """Each training tail kernel at B=8, N=7000, k=30, C=64 against its
+    plain version on the card: outputs, the channel sums' error against
+    float64, device-only times of both and the byte bound."""
+    import torch
+
+    from dgcnn_tpu_torch.kernels import edgeconv_train as et
+
+    g = torch.Generator(device=dev).manual_seed(15)
+    shape = (B, N, K, 64)
+    p = torch.randn(shape, generator=g, device=dev) * 2 + 0.5
+    p[:, :, 4] = p[:, :, 2]  # exact ties across k
+    bvec = torch.randn((B, N, 64), generator=g, device=dev)
+    gz = torch.randn(shape, generator=g, device=dev)
+    gamma = (torch.rand(64, generator=g, device=dev) + 0.5) * torch.where(
+        torch.rand(64, generator=g, device=dev) < 0.3, -1.0, 1.0)
+    beta = 0.2 * torch.randn(64, generator=g, device=dev)
+    m = B * N * K
+    sums = et.tail_sums_plain(p, bvec)
+    mean = sums[0] / m
+    inv = torch.rsqrt((sums[1] / m - mean * mean).clamp_min(0.0) + 1e-5)
+    scale = inv * gamma
+    gsum = et.tail_grad_sums_plain(p, bvec, gz, mean, inv, gamma, beta)
+    t1, t2 = gsum.unbind(0)
+    mx, am, _ = et.tail_max_plain(p, None, mean, scale, beta)
+    gq = gz[:, :, 0].contiguous()
+
+    def seq_k(t):
+        acc = t[:, :, 0].clone()
+        for j in range(1, t.shape[2]):
+            acc = acc + t[:, :, j]
+        return acc
+
+    def sums_err(got, want64, abs64) -> float:
+        return float(((got.double() - want64).abs() / abs64).max())
+
+    e = p + bvec[:, :, None, :]
+    e64 = e.double()
+    xhat = (e - mean) * inv
+    gp64 = torch.where(xhat * gamma + beta >= 0, gz, 0.2 * gz).double()
+    checks = {}
+    got = et.tail_sums(p, bvec)
+    checks["tail_sums"] = {
+        "rel_err": sums_err(got, torch.stack([e64.sum((0, 1, 2)), (e64 * e64).sum((0, 1, 2))]),
+                            torch.stack([e64.abs().sum((0, 1, 2)), (e64 * e64).sum((0, 1, 2))])),
+        "plain_rel_err": sums_err(sums, torch.stack([e64.sum((0, 1, 2)),
+                                                     (e64 * e64).sum((0, 1, 2))]),
+                                  torch.stack([e64.abs().sum((0, 1, 2)),
+                                               (e64 * e64).sum((0, 1, 2))])),
+        "repeat_equal": torch.equal(got, et.tail_sums(p, bvec))}
+    got = et.tail_grad_sums(p, bvec, gz, mean, inv, gamma, beta)
+    want = torch.stack([gp64.sum((0, 1, 2)), (gp64 * xhat).sum((0, 1, 2))])
+    mag = torch.stack([gp64.abs().sum((0, 1, 2)), (gp64 * xhat).abs().sum((0, 1, 2))])
+    checks["tail_grad_sums"] = {
+        "rel_err": sums_err(got, want, mag), "plain_rel_err": sums_err(gsum, want, mag),
+        "repeat_equal": torch.equal(got, et.tail_grad_sums(p, bvec, gz, mean, inv, gamma,
+                                                           beta))}
+    del e64, gp64
+    checks["tail_apply"] = {"equal": torch.equal(
+        et.tail_apply(p, bvec, mean, scale, beta), et.tail_apply_plain(p, bvec, mean, scale,
+                                                                       beta))}
+    kmx, kam, kse = et.tail_max(p, bvec, mean, scale, beta, with_sum=True)
+    pmx, pam, _ = et.tail_max_plain(p, bvec, mean, scale, beta)
+    checks["tail_max"] = {"equal": torch.equal(kmx, pmx) and torch.equal(kam, pam),
+                          "sum_equal": torch.equal(kse, seq_k(e))}
+    de, d_bvec = et.tail_grad(p, bvec, gz, mean, inv, gamma, beta, t1, t2, m)
+    want_de, _ = et.tail_grad_plain(p, bvec, gz, mean, inv, gamma, beta, t1, t2, m)
+    checks["tail_grad"] = {"equal": torch.equal(de, want_de),
+                           "sum_equal": torch.equal(d_bvec, seq_k(want_de))}
+    del de, want_de, d_bvec
+    checks["tail_max_grad"] = {"equal": torch.equal(
+        et.tail_max_grad(p, am, gq, mean, inv, gamma, t1, t2, m),
+        et.tail_max_grad_plain(p, am, gq, mean, inv, gamma, t1, t2, m))}
+    for name, c in checks.items():
+        ok = all(v for k_, v in c.items() if k_ in ("equal", "sum_equal", "repeat_equal"))
+        if not ok or c.get("rel_err", 0.0) > 2e-6:
+            raise AssertionError(f"[tail] {name} against its plain version: {c}")
+
+    pass_b = 4.0 * B * N * K * 64  # one (B, N, k, 64) FP32 pass
+    vec_b = 4.0 * B * N * 64  # one (B, N, 64) FP32 table
+    calls = {
+        # (kernel call, plain call, bytes: inputs read once, outputs written once)
+        "tail_sums": (lambda: et.tail_sums(p, bvec), lambda: et.tail_sums_plain(p, bvec),
+                      pass_b + vec_b),
+        "tail_apply": (lambda: et.tail_apply(p, bvec, mean, scale, beta),
+                       lambda: et.tail_apply_plain(p, bvec, mean, scale, beta),
+                       2 * pass_b + vec_b),
+        "tail_max": (lambda: et.tail_max(p, bvec, mean, scale, beta, True),
+                     lambda: et.tail_max_plain(p, bvec, mean, scale, beta, True),
+                     pass_b + vec_b * (1 + 2 + 0.25)),
+        "tail_grad_sums": (lambda: et.tail_grad_sums(p, bvec, gz, mean, inv, gamma, beta),
+                           lambda: et.tail_grad_sums_plain(p, bvec, gz, mean, inv, gamma,
+                                                           beta),
+                           2 * pass_b + vec_b),
+        "tail_grad": (lambda: et.tail_grad(p, bvec, gz, mean, inv, gamma, beta, t1, t2, m),
+                      lambda: et.tail_grad_plain(p, bvec, gz, mean, inv, gamma, beta, t1, t2,
+                                                 m),
+                      3 * pass_b + 2 * vec_b),
+        "tail_max_grad": (lambda: et.tail_max_grad(p, am, gq, mean, inv, gamma, t1, t2, m),
+                          lambda: et.tail_max_grad_plain(p, am, gq, mean, inv, gamma, t1,
+                                                         t2, m),
+                          2 * pass_b + vec_b * 1.25),
+    }
+    for name, (run, plain, nbytes) in calls.items():
+        b_ms, b_by = bound(nbytes, 0.0)
+        checks[name].update(ms=cuda_ms_many(run, 20, 10), plain_ms=cuda_ms_many(plain, 5, 5),
+                            bound_ms=b_ms, bound_by=b_by)
+        checks[name]["bound_share"] = b_ms / checks[name]["ms"]
+        log(f"[tail] {name}: {checks[name]}")
+    return checks
+
+
+def phase_train_tail(dev: str = "cuda") -> dict:
+    """Phase 15: the training tail kernels against their plain versions and
+    timed; a production train step's launches and counters; its loss and
+    gradients against the step with the tails' plain versions."""
+    import torch
+
+    from dgcnn_tpu_torch.kernels import edgeconv_train as et
+    from dgcnn_tpu_torch.models.dgcnn import DGCNN, DGCNNConfig, init_dgcnn
+    from dgcnn_tpu_torch.ops.losses import masked_smoothed_cross_entropy
+    from dgcnn_tpu_torch.train.steps import init_train_state, make_train_step
+    from dgcnn_tpu_torch.utils import profiling
+
+    t_phase = time.perf_counter()
+    cases = tail_cases(dev)
+    torch.cuda.empty_cache()
+
+    # one production train step (the default configuration, its guard off):
+    # the row kernels launch as before, the tails on the kernels
+    cfg = DGCNNConfig(k=K, emb_dims=1024)
+    pts = torch.from_numpy(make_blocks(B, N, seed=16)).to(dev)
+    rng = np.random.default_rng(16)
+    labels = torch.from_numpy(rng.integers(0, 5, (B, N))).to(dev)
+    mask = torch.from_numpy((rng.random((B, N)) < 0.7).astype(np.float32)).to(dev)
+    state = init_train_state(cfg, seed=2, device=dev, epochs=30)
+    step = make_train_step(cfg)
+    step(state, pts, labels, mask)
+    torch.cuda.synchronize()
+    counters = reset_counters()
+    profiling.reset()
+    with profiling.recording():
+        float(step(state, pts, labels, mask)["loss"])
+    recorded = profiling.snapshot()["counters"]
+    profiling.reset()
+    launches = {name: fn.launches for name, fn in counters.items()}
+    want = {"gather_rows": 3, "scatter_add_rows": 1, "scatter_stage_tail_rows": 1,
+            **TAIL_LAUNCHES}
+    tail_counts = {name: recorded.get(f"edgeconv.train_tail.{name}", 0)
+                   for name in ("kernel", "plain")}
+    log(f"[tail] a train step's launches {launches}, recorder {tail_counts}")
+    if any(launches[k_] != v for k_, v in want.items()) or tail_counts != {"kernel": 5,
+                                                                           "plain": 0}:
+        raise AssertionError(f"[tail] a train step's launches {launches} (want {want}), "
+                             f"recorder {tail_counts}")
+
+    # step times: the kernels, then the plain versions on the card, in turns
+    times = {"kernel": [], "plain": []}
+    for _ in range(3):
+        for route in ("kernel", "plain"):
+            with plain_tails() if route == "plain" else contextlib.nullcontext():
+                step(state, pts, labels, mask)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(5):
+                    float(step(state, pts, labels, mask)["loss"])
+                times[route].append((time.perf_counter() - t0) / 5 * 1e3)
+    step_ms = {r: float(np.median(v)) for r, v in times.items()}
+    log(f"[tail] train step ms, kernels / plain tails on the card: {times}")
+
+    # one step's loss and gradients against the plain tails, the kNN replayed
+    gcfg = DGCNNConfig(k=K, emb_dims=1024, dropout=0.0)
+    weights = init_dgcnn(gcfg, torch.Generator().manual_seed(3)).state_dict()
+    models = {r: DGCNN(gcfg) for r in ("kernel", "plain")}
+    replay_knn(models["kernel"], models["plain"])
+    losses, grads = {}, {}
+    for route, model in models.items():
+        model.load_state_dict(weights)
+        model = model.to(dev).train()
+        with plain_tails() if route == "plain" else contextlib.nullcontext():
+            loss = masked_smoothed_cross_entropy(model(pts), labels, mask)
+            loss.backward()
+        losses[route] = loss.item()
+        grads[route] = {k_: p_.grad.double() for k_, p_ in model.named_parameters()}
+    norms = {r: {k_: g_.norm().item() for k_, g_ in gs.items()} for r, gs in grads.items()}
+    med = float(np.median(list(norms["plain"].values())))
+    leaf_gap = {k_: abs(norms["kernel"][k_] - v) / max(v, med) for k_, v in norms["plain"].items()}
+    rel = {k_: _rel(grads["kernel"][k_], g_, 1e-3 * med) for k_, g_ in grads["plain"].items()}
+    loss_gap = abs(losses["kernel"] - losses["plain"]) / abs(losses["plain"])
+    worst, worst_rel = max(leaf_gap, key=leaf_gap.get), max(rel, key=rel.get)
+    log(f"[tail] step vs plain tails: loss {losses['kernel']:.8f} / {losses['plain']:.8f} "
+        f"(gap {loss_gap:.2e}), worst leaf norm gap {worst} {leaf_gap[worst]:.2e}, worst "
+        f"leaf difference {worst_rel} {rel[worst_rel]:.2e}")
+    # the train cells' correct limits (loss_gap.1, grad_gap)
+    if loss_gap > 3e-6 or leaf_gap[worst] > 1e-2:
+        raise AssertionError(f"[tail] the kernels' step against the plain tails: loss gap "
+                             f"{loss_gap}, leaf gaps {leaf_gap}")
+    log(f"[tail] phase 15 ran in {time.perf_counter() - t_phase:.1f} s")
+    return {"cases": cases, "launches_per_step": launches, "recorder": tail_counts,
+            "step_ms": step_ms, "step_ms_all": times, "loss_gap": loss_gap,
+            "grad_leaf_gap": leaf_gap[worst], "grad_rel_worst": rel[worst_rel]}
 
 
 def train_parity(pts, labels, mask, steps: int = 10) -> dict:
@@ -4297,7 +4542,7 @@ def phase_approx(tmp: str) -> dict:
         times.append((time.perf_counter() - t0) * 1e3)
     per_step = {name: fn.launches / 3 for name, fn in counters.items()}
     want = {**none, "knn_approx": 3, "gather_rows": 3, "scatter_add_rows": 1,
-            "scatter_stage_tail_rows": 1}
+            "scatter_stage_tail_rows": 1, **TAIL_LAUNCHES}
     if per_step != want or not np.isfinite(losses).all():
         raise AssertionError(f"[approx] train step: launches {per_step}, losses {losses}")
     res["train"] = {"launches_per_step": per_step["knn_approx"], "losses": losses,
@@ -4366,6 +4611,7 @@ def main() -> int:
     fwd_ms, diffs = phase_forward()
     with tempfile.TemporaryDirectory() as tmp:
         trained = phase_train(tmp)
+        train_tail = phase_train_tail()
         evaluated = phase_eval(tmp)
         train_configs = phase_train_configs(tmp)
         parallel = phase_parallel(tmp)  # 12d trains on phase 7's rooms
@@ -4624,7 +4870,8 @@ def main() -> int:
                     "forward_ms_per_batch": fwd_ms, "forward_prob_diff": diffs,
                     "capped_path_launches": capped_launches,
                     "mode_launches": mode_launches, "parity_wrapper": parity_wrapper,
-                    "train": trained, "train_configs": train_configs,
+                    "train": trained, "train_tail": train_tail,
+                    "train_configs": train_configs,
                     "lifecycle": lifecycle, "parallel": parallel, "precision": precision,
                     "approx": approx,
                     "wide": {"kernels": wide_kernels, "forward": wide_fwd,

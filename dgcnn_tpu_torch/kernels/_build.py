@@ -56,6 +56,13 @@ SIGNATURES = {
     "dgcnn_edgeconv_extrema": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "dgcnn_scatter_add_rows": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     "dgcnn_scatter_stage_tail": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "dgcnn_train_tail_sums": (_P, _P, _P, _I, _P, _I, _I, _P),
+    "dgcnn_train_tail_grad_sums": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _P),
+    "dgcnn_train_tail_apply": (_P, _P, _P, _P, _P, _P, _I, _I, _P),
+    "dgcnn_train_tail_max": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P),
+    "dgcnn_train_tail_grad": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _I, _I,
+                              _P),
+    "dgcnn_train_tail_max_grad": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _P),
 }
 
 _lib: ctypes.CDLL | None = None

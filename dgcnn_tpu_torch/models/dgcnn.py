@@ -59,6 +59,7 @@ from dgcnn_tpu_torch.ops.edgeconv import (
     bn_lrelu_train,
     edge_conv_linear,
     edge_conv_linear_extrema,
+    edge_conv_terms,
     edge_stage_tail_train,
     lrelu,
     max_over_k,
@@ -448,14 +449,16 @@ class DGCNN(nn.Module):
         conv_b, bn_b = getattr(self, f"conv{n + 1}"), getattr(self, f"bn{n + 1}")
         cd = self.cfg.product_mode
         if self.training:
-            e = edge_conv_linear(x, idx, conv_a.w, compute_dtype=cd)
-            count = batch_count(e.numel() // e.shape[-1])
+            count = batch_count(x.shape[0] * x.shape[1] * idx.shape[-1])
             if self._fused_tails():
-                e, mean_a, var_a = bn_lrelu_train(e, bn_a.gamma, bn_a.beta)
+                # the conv's point term goes into the tail, not into e
+                p, bvec = edge_conv_terms(x, idx, conv_a.w, compute_dtype=cd)
+                e, mean_a, var_a = bn_lrelu_train(p, bn_a.gamma, bn_a.beta, bvec)
                 mx, mean_b, var_b = bn_lrelu_max_train(mm(e, conv_b.w, cd),
                                                        bn_b.gamma, bn_b.beta)
             else:
                 one_pass = self.cfg.bn_stats == "one_pass"
+                e = edge_conv_linear(x, idx, conv_a.w, compute_dtype=cd)
                 y, mean_a, var_a = bn_a.batch_forward(e, one_pass)
                 y, mean_b, var_b = bn_b.batch_forward(mm(lrelu(y), conv_b.w, cd), one_pass)
                 mx = max_over_k(lrelu(y))

@@ -25,7 +25,8 @@ written (none is left to autograd's default backward):
   its forward gather, and stage 3's, runs ``kernels/gather_rows.py::gather_rows``
   (a CUDA kernel on the card);
 * :func:`bn_lrelu_train` — one-pass training BN + LeakyReLU, ``e`` the only
-  large residual;
+  large residual; given the conv's point term ``bvec``
+  (:func:`edge_conv_terms`) it runs on ``e + bvec`` without writing it;
 * :func:`bn_lrelu_max_train` — ... + first-argmax max over k; both BN sums
   reduce over (B, N, C) because the max routes the cotangent to one slot;
 * :func:`edge_stage_tail_train` — stage 3's gather + bvec + BN + LeakyReLU
@@ -34,6 +35,11 @@ written (none is left to autograd's default backward):
   ``e`` residual never exist);
 * :func:`max_over_k` — the gradient goes to the FIRST maximum only (as
   torch's ``max(dim)``); ``amax``'s own backward splits it among ties.
+
+Their passes over the (B, N, k, C) tensors (the channel sums, the
+normalise + LeakyReLU (+ max), the backward's sums and ``de``) are
+``kernels/edgeconv_train.py``'s: CUDA kernels on the card, the plain
+PyTorch chain on the CPU.
 
 The BN functions return ``(out, batch_mean, batch_var_biased)``; the two
 statistics carry no gradient and feed the running-statistics update. Under
@@ -47,6 +53,17 @@ from __future__ import annotations
 
 import torch
 
+from dgcnn_tpu_torch.kernels.edgeconv_train import SLOPE as _SLOPE
+from dgcnn_tpu_torch.kernels.edgeconv_train import (
+    am_dtype as _am_dtype,
+    route as _route,
+    tail_apply,
+    tail_grad,
+    tail_grad_sums,
+    tail_max,
+    tail_max_grad,
+    tail_sums,
+)
 from dgcnn_tpu_torch.kernels.gather_rows import gather_rows
 from dgcnn_tpu_torch.kernels.scatter_rows import (
     scatter_add_rows,
@@ -55,7 +72,6 @@ from dgcnn_tpu_torch.kernels.scatter_rows import (
 from dgcnn_tpu_torch.ops.matmul import mm, mm_shared, rounded
 from dgcnn_tpu_torch.parallel.collectives import all_reduce_, batch_count, batch_group
 
-_SLOPE = 0.2
 _BN_EPS = 1e-5
 
 
@@ -95,18 +111,21 @@ def gather_neighbors(feats: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return _GatherNeighbors.apply(feats, idx)
 
 
-def edge_conv_linear(x: torch.Tensor, idx: torch.Tensor, w: torch.Tensor,
-                     *, compute_dtype: torch.dtype | None = None,
-                     gather_first: bool | None = None) -> torch.Tensor:
-    """``edge_features(x, idx) @ w`` by the linear decomposition; w is
-    (2C, C_out) with rows [:C] on ``x_j - x_i`` and rows [C:] on ``x_i``.
-    ``gather_first`` (default C < C_out) gathers raw x then multiplies, so
-    the backward scatter is C wide, not C_out; with ``compute_dtype`` (a
-    product mode) it gathers the rounded x (whose cotangent, never needed
-    by the model: stage 1 gathers the input points, scatters in FP32 where
-    JAX's scatters in bf16; in TF32 the rounding passes it unchanged, as
-    JAX's rounding inside the product does). Returns (B, N, k, C_out)
-    pre-BN activations."""
+def edge_conv_terms(x: torch.Tensor, idx: torch.Tensor, w: torch.Tensor,
+                    *, compute_dtype: torch.dtype | None = None,
+                    gather_first: bool | None = None
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``edge_features(x, idx) @ w`` by the linear decomposition, as its two
+    terms: the neighbour term (B, N, k, C_out) and the point term
+    ``bvec`` (B, N, C_out), whose sum ``p + bvec[:, :, None, :]`` is the
+    pre-BN activation. w is (2C, C_out) with rows [:C] on ``x_j - x_i`` and
+    rows [C:] on ``x_i``. ``gather_first`` (default C < C_out) gathers raw
+    x then multiplies, so the backward scatter is C wide, not C_out; with
+    ``compute_dtype`` (a product mode) it gathers the rounded x (whose
+    cotangent, never needed by the model: stage 1 gathers the input
+    points, scatters in FP32 where JAX's scatters in bf16; in TF32 the
+    rounding passes it unchanged, as JAX's rounding inside the product
+    does)."""
     c = x.shape[-1]
     if gather_first is None:
         gather_first = c < w.shape[-1]
@@ -114,9 +133,19 @@ def edge_conv_linear(x: torch.Tensor, idx: torch.Tensor, w: torch.Tensor,
     if gather_first:
         b = mm(x, w_x - w_d, compute_dtype)
         nbr = gather_neighbors(rounded(x, compute_dtype), idx)
-        return mm(nbr, w_d, compute_dtype) + b[:, :, None, :]
+        return mm(nbr, w_d, compute_dtype), b
     a, b = mm_shared(x, (w_d, w_x - w_d), compute_dtype)
-    return gather_neighbors(a, idx) + b[:, :, None, :]
+    return gather_neighbors(a, idx), b
+
+
+def edge_conv_linear(x: torch.Tensor, idx: torch.Tensor, w: torch.Tensor,
+                     *, compute_dtype: torch.dtype | None = None,
+                     gather_first: bool | None = None) -> torch.Tensor:
+    """``edge_features(x, idx) @ w``: the (B, N, k, C_out) pre-BN
+    activations, :func:`edge_conv_terms` added."""
+    p, b = edge_conv_terms(x, idx, w, compute_dtype=compute_dtype,
+                           gather_first=gather_first)
+    return p + b[:, :, None, :]
 
 
 def edge_conv_linear_extrema(x: torch.Tensor, idx: torch.Tensor, w: torch.Tensor,
@@ -131,18 +160,6 @@ def edge_conv_linear_extrema(x: torch.Tensor, idx: torch.Tensor, w: torch.Tensor
     b = mm(x, w_x - w_d, compute_dtype)
     nbr = gather_neighbors(a, idx)
     return nbr.amax(dim=2) + b, nbr.amin(dim=2) + b
-
-
-def _am_dtype(k: int) -> torch.dtype:
-    # int8 argmax residuals while every k-slot fits; beyond, a wrap would
-    # misroute gradients
-    return torch.int8 if k <= 127 else torch.int32
-
-
-def _route(am: torch.Tensor, g: torch.Tensor, k: int) -> torch.Tensor:
-    """(B, N, C) cotangent -> (B, N, k, C), nonzero only at slot ``am``."""
-    out = g.new_zeros(g.shape[:2] + (k,) + g.shape[2:])
-    return out.scatter_(2, am.long()[:, :, None, :], g[:, :, None, :])
 
 
 class _MaxOverK(torch.autograd.Function):
@@ -167,20 +184,18 @@ def max_over_k(e: torch.Tensor) -> torch.Tensor:
     return _MaxOverK.apply(e)
 
 
-def _one_pass_stats(e: torch.Tensor):
+def _one_pass_stats(p: torch.Tensor, bvec: torch.Tensor | None = None):
     """Batch mean, biased variance ``max(E[x^2] - E[x]^2, 0)`` and
-    ``rsqrt(var + eps)`` over all leading axes (over the global batch under
-    data parallelism: ``parallel/collectives.py::batch_parallel``)."""
-    axes = tuple(range(e.ndim - 1))
+    ``rsqrt(var + eps)`` over all leading axes of ``e = p (+ bvec)`` (over
+    the global batch under data parallelism:
+    ``parallel/collectives.py::batch_parallel``), from its channel sums."""
+    count = batch_count(p.numel() // p.shape[-1])
+    sums = tail_sums(p, bvec)
     group = batch_group()
-    if group is None:
-        mean = e.mean(dim=axes)
-        var = ((e * e).mean(dim=axes) - mean * mean).clamp_min(0.0)
-    else:
-        count = batch_count(e.numel() // e.shape[-1])
-        sums = all_reduce_(torch.stack([e.sum(dim=axes), (e * e).sum(dim=axes)]), group)
-        mean = sums[0] / count
-        var = (sums[1] / count - mean * mean).clamp_min(0.0)
+    if group is not None:
+        sums = all_reduce_(sums, group)
+    mean = sums[0] / count
+    var = (sums[1] / count - mean * mean).clamp_min(0.0)
     return mean, var, torch.rsqrt(var + _BN_EPS)
 
 
@@ -195,15 +210,13 @@ def _global_sums(*sums: torch.Tensor) -> tuple[torch.Tensor, ...]:
     return tuple(all_reduce_(torch.stack(sums), group).unbind(0))
 
 
-def _bn_lrelu_max_core(e, gamma, beta):
-    """The fused max tails' forward: one-pass stats, normalise, LeakyReLU,
-    first-max reduce. Returns (mean, var, inv, mx, am)."""
-    mean, var, inv = _one_pass_stats(e)
-    y = (e - mean) * (inv * gamma) + beta
-    z = lrelu(y)
-    mx = z.amax(dim=2)
-    am = z.argmax(dim=2).to(_am_dtype(e.shape[2]))  # first max (lrelu is monotone)
-    return mean, var, inv, mx, am
+def _bn_lrelu_max_core(p, gamma, beta, bvec=None, with_sum=False):
+    """The fused max tails' forward on ``e = p (+ bvec)``: one-pass stats,
+    normalise, LeakyReLU, first-max reduce. Returns (mean, var, inv, mx,
+    am, ``sum_k e`` or None)."""
+    mean, var, inv = _one_pass_stats(p, bvec)
+    mx, am, se = tail_max(p, bvec, mean, inv * gamma, beta, with_sum)
+    return mean, var, inv, mx, am, se
 
 
 def _max_tail_sums(g, mx, gamma, beta):
@@ -221,7 +234,7 @@ def _max_tail_sums(g, mx, gamma, beta):
 class _BnLreluMax(torch.autograd.Function):
     @staticmethod
     def forward(ctx, e, gamma, beta):
-        mean, var, inv, mx, am = _bn_lrelu_max_core(e, gamma, beta)
+        mean, var, inv, mx, am, _ = _bn_lrelu_max_core(e, gamma, beta)
         ctx.save_for_backward(e, gamma, beta, mean, inv, am, mx)
         ctx.mark_non_differentiable(mean, var)
         return mx, mean, var
@@ -229,13 +242,10 @@ class _BnLreluMax(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g, _gm, _gv):
         e, gamma, beta, mean, inv, am, mx = ctx.saved_tensors
-        k = e.shape[2]
         m_count = batch_count(e.numel() // e.shape[-1])
         gp, s1, s2 = _max_tail_sums(g, mx, gamma, beta)
         t1, t2 = _global_sums(s1, s2)
-        dy = _route(am, gp, k)
-        xhat = (e - mean) * inv
-        de = (gamma * inv) * (dy - (t1 + xhat * t2) * (1.0 / m_count))
+        de = tail_max_grad(e, am, gp, mean, inv, gamma, t1, t2, m_count)
         return de, s2, s1
 
 
@@ -249,9 +259,9 @@ def bn_lrelu_max_train(e: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor)
 class _EdgeStageTail(torch.autograd.Function):
     @staticmethod
     def forward(ctx, a, bvec, idx, gamma, beta):
-        e = _gather(a, idx) + bvec[:, :, None, :]
-        mean, var, inv, mx, am = _bn_lrelu_max_core(e, gamma, beta)
-        se = e.sum(dim=2)  # (B, N, C): the bvec cotangent's sweep
+        # se (B, N, C): sum_k e, the bvec cotangent's sweep
+        mean, var, inv, mx, am, se = _bn_lrelu_max_core(_gather(a, idx), gamma, beta,
+                                                         bvec, with_sum=True)
         ctx.save_for_backward(a, bvec, idx, gamma, beta, mean, inv, am, mx, se)
         ctx.mark_non_differentiable(mean, var)
         return mx, mean, var
@@ -292,30 +302,29 @@ def edge_stage_tail_train(a: torch.Tensor, bvec: torch.Tensor, idx: torch.Tensor
 
 class _BnLrelu(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, e, gamma, beta):
-        mean, var, inv = _one_pass_stats(e)
-        z = lrelu((e - mean) * (inv * gamma) + beta)
-        ctx.save_for_backward(e, gamma, beta, mean, inv)
+    def forward(ctx, p, gamma, beta, bvec):
+        mean, var, inv = _one_pass_stats(p, bvec)
+        z = tail_apply(p, bvec, mean, inv * gamma, beta)
+        ctx.save_for_backward(p, bvec, gamma, beta, mean, inv)
         ctx.mark_non_differentiable(mean, var)
         return z, mean, var
 
     @staticmethod
     def backward(ctx, g, _gm, _gv):
-        e, gamma, beta, mean, inv = ctx.saved_tensors
-        axes = tuple(range(e.ndim - 1))
-        m_count = batch_count(e.numel() // e.shape[-1])
-        xhat = (e - mean) * inv
-        y = xhat * gamma + beta
-        gp = torch.where(y >= 0, g, _SLOPE * g)
-        s1 = gp.sum(dim=axes)
-        s2 = (gp * xhat).sum(dim=axes)
+        p, bvec, gamma, beta, mean, inv = ctx.saved_tensors
+        m_count = batch_count(p.numel() // p.shape[-1])
+        s1, s2 = tail_grad_sums(p, bvec, g, mean, inv, gamma, beta).unbind(0)
         t1, t2 = _global_sums(s1, s2)
-        de = (gamma * inv) * (gp - (t1 + xhat * t2) * (1.0 / m_count))
-        return de, s2, s1
+        de, d_bvec = tail_grad(p, bvec, g, mean, inv, gamma, beta, t1, t2, m_count)
+        return de, s2, s1, d_bvec
 
 
-def bn_lrelu_train(e: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor):
+def bn_lrelu_train(e: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+                   bvec: torch.Tensor | None = None):
     """Training mid-stage ``lrelu(BN_train(e))`` (no max): returns ``(out,
     batch_mean, batch_var_biased)``; the backward keeps only ``e`` as its
-    large residual and recomputes xhat and the LeakyReLU sign."""
-    return _BnLrelu.apply(e, gamma, beta)
+    large residual and recomputes xhat and the LeakyReLU sign. With
+    ``bvec`` (B, N, C), ``e`` is the conv's neighbour term and the tail
+    runs on ``e + bvec[:, :, None, :]`` (:func:`edge_conv_terms`) without
+    writing it; ``bvec`` gets its gradient, ``sum_k de``."""
+    return _BnLrelu.apply(e, gamma, beta, bvec)

@@ -1542,3 +1542,135 @@ def test_approx_forward_launches_the_kernel_three_times(dev):
         got = torch.softmax(model.to(dev)(x.to(dev)), -1).cpu()
     assert knn_approx.launches == before + 3
     assert (got - want).abs().max() <= 1e-3
+
+
+# ------------------------------------------- training tails (edgeconv_train)
+
+TAIL_SHAPES = [(2, 1000, 30), (8, 7000, 30), (1, 37, 5), (2, 300, 127)]
+
+
+def _tail_case(dev, b, n, k, seed):
+    """(B, N, k, 64) neighbour terms with exact ties across k, the point
+    term, a cotangent, BN vectors (a negative and a zero gamma), and the
+    channel vectors from the plain sums."""
+    from dgcnn_tpu_torch.kernels import edgeconv_train as et
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    p = torch.randn((b, n, k, 64), generator=g, device=dev) * 2 + 0.5
+    if k > 4:
+        p[:, :, 4] = p[:, :, 2]  # ties: slot 2 is the first maximum where they win
+    bvec = torch.randn((b, n, 64), generator=g, device=dev)
+    gz = torch.randn((b, n, k, 64), generator=g, device=dev)
+    gamma = (torch.rand(64, generator=g, device=dev) + 0.5) * torch.where(
+        torch.rand(64, generator=g, device=dev) < 0.3, -1.0, 1.0)
+    gamma[5] = 0.0
+    beta = 0.2 * torch.randn(64, generator=g, device=dev)
+    m = b * n * k
+    sums = et.tail_sums_plain(p, bvec)
+    mean = sums[0] / m
+    inv = torch.rsqrt((sums[1] / m - mean * mean).clamp_min(0.0) + 1e-5)
+    return dict(p=p, bvec=bvec, gz=gz, gamma=gamma, beta=beta, mean=mean, inv=inv, m=m)
+
+
+def _seq_sum_k(t):
+    """sum over k in slot order, one rounding an add: the kernels' order."""
+    acc = t[:, :, 0].clone()
+    for j in range(1, t.shape[2]):
+        acc = acc + t[:, :, j]
+    return acc
+
+
+def _sums_close(got, want64, abs64):
+    # the kernels' FP32 sums (a lane's rows in order, then a fixed tree,
+    # then FP64 across blocks) against float64: within 2e-6 of the sum of
+    # magnitudes, a tenth of the worst case of a lane's ~200-add chains
+    assert ((got.double() - want64).abs() <= 2e-6 * abs64).all()
+
+
+@pytest.mark.parametrize("b, n, k", TAIL_SHAPES)
+@pytest.mark.parametrize("with_bvec", [True, False])
+def test_train_tail_forward_kernels_equal_plain(dev, b, n, k, with_bvec):
+    from dgcnn_tpu_torch.kernels import edgeconv_train as et
+
+    c = _tail_case(dev, b, n, k, seed=b + n + k)
+    p, bvec = c["p"], (c["bvec"] if with_bvec else None)
+    scale = c["inv"] * c["gamma"]
+    e64 = (p + bvec[:, :, None, :] if with_bvec else p).double()
+    sums = et.tail_sums(p, bvec)
+    _sums_close(sums, torch.stack([e64.sum((0, 1, 2)), (e64 * e64).sum((0, 1, 2))]),
+                torch.stack([e64.abs().sum((0, 1, 2)), (e64 * e64).sum((0, 1, 2))]))
+    assert torch.equal(sums, et.tail_sums(p, bvec))  # no atomics: the same bits
+    args = (p, bvec, c["mean"], scale, c["beta"])
+    assert torch.equal(et.tail_apply(*args), et.tail_apply_plain(*args))
+    mx, am, se = et.tail_max(*args, with_sum=True)
+    want_mx, want_am, _ = et.tail_max_plain(*args)
+    assert torch.equal(mx, want_mx) and torch.equal(am, want_am)
+    e = p + bvec[:, :, None, :] if with_bvec else p
+    assert torch.equal(se, _seq_sum_k(e))
+    assert et.tail_max(*args)[2] is None
+
+
+@pytest.mark.parametrize("b, n, k", TAIL_SHAPES)
+@pytest.mark.parametrize("with_bvec", [True, False])
+def test_train_tail_backward_kernels_equal_plain(dev, b, n, k, with_bvec):
+    from dgcnn_tpu_torch.kernels import edgeconv_train as et
+
+    c = _tail_case(dev, b, n, k, seed=2 * (b + n + k))
+    p, bvec, g = c["p"], (c["bvec"] if with_bvec else None), c["gz"]
+    vec = (c["mean"], c["inv"], c["gamma"], c["beta"])
+    sums = et.tail_grad_sums(p, bvec, g, *vec)
+    xhat = ((p + bvec[:, :, None, :] if with_bvec else p) - c["mean"]) * c["inv"]
+    gp = torch.where(xhat * c["gamma"] + c["beta"] >= 0, g, 0.2 * g).double()
+    _sums_close(sums, torch.stack([gp.sum((0, 1, 2)), (gp * xhat).sum((0, 1, 2))]),
+                torch.stack([gp.abs().sum((0, 1, 2)), (gp * xhat).abs().sum((0, 1, 2))]))
+    assert torch.equal(sums, et.tail_grad_sums(p, bvec, g, *vec))
+    t1, t2 = sums.unbind(0)
+    de, d_bvec = et.tail_grad(p, bvec, g, *vec, t1, t2, c["m"])
+    want, _ = et.tail_grad_plain(p, bvec, g, *vec, t1, t2, c["m"])
+    assert torch.equal(de, want)
+    assert (d_bvec is None) == (not with_bvec)
+    if with_bvec:
+        assert torch.equal(d_bvec, _seq_sum_k(want))
+    # the max tail's: the (B, N, 64) cotangent routed to the argmax slot
+    mx, am, _ = et.tail_max(p, None, c["mean"], c["inv"] * c["gamma"], c["beta"])
+    gq = g[:, :, 0]
+    got = et.tail_max_grad(p, am, gq, c["mean"], c["inv"], c["gamma"], t1, t2, c["m"])
+    assert torch.equal(got, et.tail_max_grad_plain(p, am, gq, c["mean"], c["inv"],
+                                                   c["gamma"], t1, t2, c["m"]))
+
+
+def test_train_tail_kernels_refuse_what_they_do_not_take(dev):
+    from dgcnn_tpu_torch.kernels import edgeconv_train as et
+
+    c = _tail_case(dev, 1, 50, 8, seed=9)
+    vec = (c["mean"], c["inv"] * c["gamma"], c["beta"])
+    for p, what in ((c["p"].double(), "float32"), (c["p"][..., :32], "64"),
+                    (torch.zeros((1, 4, 128, 64), device=dev), "127")):
+        with pytest.raises(ValueError, match=what):
+            et.tail_apply(p, None, *vec)
+    with pytest.raises(ValueError, match="channel vector"):
+        et.tail_apply(c["p"], None, c["mean"].double(), *vec[1:])
+
+
+def test_train_step_tails_take_the_kernels(dev):
+    """A training forward and backward on the card: five tails, each on the
+    kernels (``edgeconv.train_tail.plain`` 0), and the wrappers' launches."""
+    from dgcnn_tpu_torch.kernels import edgeconv_train as et
+    from dgcnn_tpu_torch.utils import profiling
+
+    cfg = DGCNNConfig(k=20, emb_dims=64)
+    model = init_dgcnn(cfg, torch.Generator().manual_seed(2)).to(dev).train()
+    x = torch.from_numpy(sorted_blocks(2, 2048, seed=8)).to(dev)
+    fns = (et.tail_sums, et.tail_apply, et.tail_max, et.tail_grad_sums, et.tail_grad,
+           et.tail_max_grad)
+    before = [fn.launches for fn in fns]
+    profiling.reset()
+    try:
+        with profiling.recording():
+            model(x).square().mean().backward()
+        counters = profiling.snapshot()["counters"]
+    finally:
+        profiling.reset()
+    assert counters.get("edgeconv.train_tail.kernel") == 5
+    assert counters.get("edgeconv.train_tail.plain", 0) == 0
+    assert [fn.launches - b for fn, b in zip(fns, before)] == [5, 2, 3, 2, 2, 2]
