@@ -3,13 +3,40 @@ the result line.
 
 Layout (all found by the names in ``BENCHMARK.json``):
 
-* ``benchmark/configs/<config>.json``: the model knobs (``model``: the
-  port's ``DGCNNConfig`` fields), the input ``features``, the serving and
-  training settings, the ``precision`` whose peak the work is held to;
+* ``benchmark/configs/<config>.json``: ``architecture`` (the model's name,
+  which finds the two files below; a configuration without it is an
+  error), the model knobs (``model``), the input ``features``, the serving
+  and training settings, the ``precision`` whose peak the work is held to;
 * ``benchmark/workloads/<cell>.json``: ``config``, ``traffic``, the traffic
   kind's ``params`` and the ``limits`` of the comparison;
-* ``benchmark/traffic/<kind>.py``: ``run(ctx) -> dict`` drives the cell;
-* ``benchmark/metrics/<metric>.py``: ``read(obs) -> float | None``.
+* ``benchmark/traffic/<kind>.py``: ``run(ctx) -> dict`` drives the cell
+  with the architecture's pieces (``ctx["arch"]``);
+* ``benchmark/metrics/<metric>.py``: ``read(obs) -> float | None``;
+* ``benchmark/work/<architecture>.py``: the model's least work, from the
+  configuration and the shapes alone: ``shapes(cfg, batch, points) -> s``,
+  ``inference_sites(s)`` and ``training_sites(s)`` (kernel family ->
+  ``(work, calls)`` a batch or a step, ``work`` a dict of ``flops`` and
+  ``bytes``; ``harness/peaks.py::bound_s`` turns it into seconds),
+  ``forward_flops(s)`` (a batch) and ``train_flops(s)`` (a step), and
+  optionally ``KERNEL_GROUPS``, ``(kernel-name fragment, family)`` pairs
+  that the trace matches before its own table (``harness/trace.py``);
+* ``benchmark/arch/<architecture>.py``: the model's pieces for the shared
+  traffic loops: ``Pieces(cfg, overrides, seed, device)`` (the model
+  ``module`` with its weights from the seed, ``weights`` as made,
+  ``num_classes``, and a ``tap`` with ``armed`` and ``take()``, the
+  graphs of the armed dispatches for the check), ``serve(conf,
+  unclassified)``, then ``tile()`` a tile (``step(points) -> (pred,
+  probs, logits)``, ``suspects()`` the dispatches to re-run after the
+  drain, ``rerun(points)``, ``tripped``) and ``warm_rerun(points)``;
+  ``train_step()`` (``step(state, points, labels, mask, *mode) ->
+  metrics`` with ``loss`` and ``confusion``, and a guarded step's
+  ``band_tripped``), ``next_mode() -> (mode, guarded)``, ``observe(flag)``
+  and ``rearm()`` (each pass over the pool); and the two judges,
+  ``judge_tiles(samples, weights, cfg, device)`` and
+  ``judge_train(weights, batches, idxs, dropout_seed, program, cfg,
+  device)``, against the architecture's plain reference (DGCNN's under
+  ``reference/``). An architecture without a guard returns no suspects and
+  the mode ``()``.
 """
 
 from __future__ import annotations
@@ -43,6 +70,13 @@ def read_json(kind: str, name: str) -> dict:
     return json.loads((BENCH / kind / f"{name}.json").read_text())
 
 
+def architecture(cfg: dict, name: str) -> str:
+    """The architecture configuration ``name`` (its file ``cfg``) names."""
+    if "architecture" not in cfg:
+        raise KeyError(f"benchmark/configs/{name}.json names no \"architecture\"")
+    return cfg["architecture"]
+
+
 def load_module(kind: str, name: str):
     """``benchmark/<kind>/<name>.py`` as a module (names may hold dots)."""
     path = BENCH / kind / f"{name}.py"
@@ -52,6 +86,14 @@ def load_module(kind: str, name: str):
     sys.modules[mod_name] = mod
     mod_spec.loader.exec_module(mod)
     return mod
+
+
+def generator(seed: int, device):
+    """A ``torch.Generator`` on ``device`` seeded with ``seed`` (any whole
+    number: taken modulo 2**63)."""
+    import torch
+
+    return torch.Generator(device=device).manual_seed(int(seed) % (1 << 63))
 
 
 def end_to_end_of(name: str) -> list[dict]:

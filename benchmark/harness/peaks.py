@@ -24,3 +24,10 @@ def peaks(kind: str, precision: str) -> dict:
     if card is None:
         raise KeyError(f"no published peaks for {kind!r}")
     return {"flops_per_s": card["flops_per_s"][precision], "bytes_per_s": card["bytes_per_s"]}
+
+
+def bound_s(work: dict, peaks: dict) -> float:
+    """The least seconds the card could take for ``work`` (``flops``,
+    ``bytes``): the larger of operations over the peak rate and bytes over
+    the peak bandwidth."""
+    return max(work["flops"] / peaks["flops_per_s"], work["bytes"] / peaks["bytes_per_s"])

@@ -1,11 +1,13 @@
 """The device side of a traced window, from ``torch.profiler``.
 
 Device operations are grouped by kernel name (first match wins): the
-port's kernels by family, cuBLAS's GEMMs, copies, and everything else that
-PyTorch launches (elementwise, reductions, sort). Busy time is the union of
-the device intervals inside the harness's ``bench.window`` range; an idle
-gap is an interval of it with no device operation, named by the innermost
-``bench.*`` range of the host at the gap's start.
+architecture's own kernel families (``KERNEL_GROUPS`` of ``work/``, matched
+first), the port's kernels by family, cuBLAS's GEMMs, copies, and
+everything else that PyTorch launches (elementwise, reductions, sort).
+Busy time is the union of the device intervals inside the harness's
+``bench.window`` range; an idle gap is an interval of it with no device
+operation, named by the innermost ``bench.*`` range of the host at the
+gap's start.
 """
 
 from __future__ import annotations
@@ -30,17 +32,33 @@ GROUPS = (
 )
 PORT_GROUPS = ("knn", "stage", "extrema", "gather", "scatter", "tail")
 OTHER = "torch_ops"
+NOT_PORT = {g for _, g in GROUPS if g not in PORT_GROUPS} | {OTHER}
 
 
-def group(name: str) -> str:
+def group(name: str, declared: tuple = ()) -> str:
+    """The group of kernel ``name``: the first ``(fragment, family)`` of
+    ``declared``, then of :data:`GROUPS`, whose fragment it holds."""
     low = name.lower()
-    return next((g for frag, g in GROUPS if frag in low), OTHER)
+    return next((g for frag, g in (*declared, *GROUPS) if frag in low), OTHER)
+
+
+def declared_groups(work) -> tuple:
+    """The ``KERNEL_GROUPS`` of an architecture's ``work/`` module (none:
+    ``()``). Its families count as the port's, so none may take the name
+    of a group that is not (:data:`NOT_PORT`)."""
+    declared = tuple(getattr(work, "KERNEL_GROUPS", ()))
+    clash = {g for _, g in declared} & NOT_PORT
+    if clash:
+        raise ValueError(f"KERNEL_GROUPS of {work.__file__} name groups that are not the "
+                         f"port's: {sorted(clash)}")
+    return declared
 
 
 @contextlib.contextmanager
-def profiled(spans):
+def profiled(spans, declared: tuple = ()):
     """Profile the block (host and device activity) and yield a dict that is
-    filled with :func:`summary` when the block ends."""
+    filled with :func:`summary` when the block ends; ``declared`` as in
+    :func:`group`."""
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
 
@@ -56,7 +74,7 @@ def profiled(spans):
             if cuda:
                 torch.cuda.synchronize()
     spans.profiling = False
-    out.update(summary(prof.events()))
+    out.update(summary(prof.events(), declared))
 
 
 def _union(intervals):
@@ -69,10 +87,11 @@ def _union(intervals):
     return merged
 
 
-def summary(events) -> dict:
+def summary(events, declared: tuple = ()) -> dict:
     """``window_s``, ``busy_s``, ``groups`` (seconds by group), ``launches``
     (by group), ``device_ops`` and ``idle_gaps`` (name, seconds; longest
-    first) of a profile whose host side holds one ``bench.window`` range."""
+    first) of a profile whose host side holds one ``bench.window`` range;
+    ``declared`` as in :func:`group`."""
     import torch
 
     cuda = torch.autograd.DeviceType.CUDA
@@ -95,7 +114,7 @@ def summary(events) -> dict:
     groups: dict[str, float] = {}
     launches: dict[str, int] = {}
     for t0, t1, name in dev:
-        g = group(name)
+        g = group(name, declared)
         groups[g] = groups.get(g, 0.0) + (t1 - t0) * 1e-6
         launches[g] = launches.get(g, 0) + 1
     merged = _union([(t0, t1) for t0, t1, _ in dev])

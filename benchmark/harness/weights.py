@@ -11,6 +11,8 @@ import math
 
 import torch
 
+from harness.core import generator
+
 
 def plan(num_features: int, emb_dims: int, num_classes: int) -> dict[str, tuple[int, int]]:
     """DGCNN segmentation's convs, (c_in, c_out), in order."""
@@ -18,10 +20,6 @@ def plan(num_features: int, emb_dims: int, num_classes: int) -> dict[str, tuple[
     return {"conv1": (2 * f, 64), "conv2": (64, 64), "conv3": (128, 64), "conv4": (64, 64),
             "conv5": (128, 64), "conv6": (192, emb), "conv7": (emb + 192, 512),
             "conv8": (512, 256), "conv9": (256, num_classes)}
-
-
-def generator(seed: int, device) -> torch.Generator:
-    return torch.Generator(device=device).manual_seed(int(seed) % (1 << 63))
 
 
 def make_weights(model_cfg: dict, seed: int, device) -> dict[str, torch.Tensor]:

@@ -36,21 +36,21 @@ ROOT = BENCH.parent
 sys.path[:0] = [str(ROOT), str(BENCH), str(BENCH / "reference")]
 
 
-def observations(out: dict, cfg: dict, kind: str) -> dict:
+def observations(out: dict, cfg: dict, kind: str, work) -> dict:
     """What the per-layer readers read: the driver's window and trace, and
-    the work bounds per batch and per step at the card's peaks."""
-    from harness.peaks import peaks
-    from work import dgcnn
+    the work bounds per batch and per step at the card's peaks, counted by
+    the architecture's ``work`` module."""
+    from harness.peaks import bound_s, peaks
 
-    s = dgcnn.shapes(cfg, out["obs"]["batch"], out["obs"]["points"])
+    s = work.shapes(cfg, out["obs"]["batch"], out["obs"]["points"])
     pk = peaks(kind, cfg["precision"])
     bounds = {
-        site: {fam: dgcnn.bound_s(w, pk) * calls for fam, (w, calls) in fams.items()}
-        for site, fams in (("inference", dgcnn.inference_sites(s)),
-                           ("training", dgcnn.training_sites(s)))}
+        site: {fam: bound_s(w, pk) * calls for fam, (w, calls) in fams.items()}
+        for site, fams in (("inference", work.inference_sites(s)),
+                           ("training", work.training_sites(s)))}
     return dict(out["obs"], bounds=bounds, peak_flops=pk["flops_per_s"],
-                forward_flops_per_block=dgcnn.forward_flops(s) / s["B"],
-                train_flops_per_step=dgcnn.train_flops(s))
+                forward_flops_per_block=work.forward_flops(s) / s["B"],
+                train_flops_per_step=work.train_flops(s))
 
 
 def run_cell(name: str, seed: int, seconds: float, trace: bool, device,
@@ -63,16 +63,20 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, device,
     import torch
 
     from harness import core
+    from harness.trace import declared_groups
 
     entry = core.cell(name)
     wl = core.read_json("workloads", name)
     cfg = core.read_json("configs", wl["config"])
+    arch = core.architecture(cfg, wl["config"])
+    work = core.load_module("work", arch)
     traffic = core.load_module("traffic", wl["traffic"])
     device = torch.device(device)
     spans = core.Spans()
     ctx = {"seed": seed, "seconds": seconds, "trace": trace, "device": device,
            "config": cfg, "params": {**wl["params"], **(params or {})}, "spans": spans, "t_start": t_start,
-           "fault": fault, "overrides": overrides or {}}
+           "fault": fault, "overrides": overrides or {}, "arch": core.load_module("arch", arch),
+           "kernel_groups": declared_groups(work)}
     out = traffic.run(ctx)
     judge = out.pop("judge")
     gc.collect()
@@ -85,7 +89,7 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, device,
            "count": entry["chips"], "memory_peak_bytes": int(out["memory_peak_bytes"])}
     metrics, breakdown = {}, None
     if trace:
-        obs = observations(out, cfg, kind if device.type == "cuda" else "H100")
+        obs = observations(out, cfg, kind if device.type == "cuda" else "H100", work)
         for m in core.per_layer_of(name):
             value = core.load_module("metrics", m["name"]).read(obs)
             if value is not None:

@@ -85,21 +85,115 @@ def test_work_counts_at_production_shapes(f, knn, edge, trunk, forward, train):
 
 
 def test_call_site_bounds_at_production_shapes():
-    from harness.peaks import peaks
+    from harness.peaks import bound_s, peaks
 
     pk = peaks("NVIDIA H100 80GB HBM3", "float32")
     s = dict(PRODUCTION, F=4)
     # the stage call: 2*8*7000*30*64*64 operations at 67 TFLOP/s
-    assert work.bound_s(work.stage_call(s), pk) == pytest.approx(13.76256e9 / 67e12)
+    assert bound_s(work.stage_call(s), pk) == pytest.approx(13.76256e9 / 67e12)
     # the extrema: 4*8*7000*(3*64 + 30) bytes at 3.35 TB/s
-    assert work.bound_s(work.extrema_call(s), pk) == pytest.approx(
+    assert bound_s(work.extrema_call(s), pk) == pytest.approx(
         (4 * 8 * 7000 * 222 + 4 * 192) / 3.35e12)
-    assert work.bound_s(work.knn(s), pk) == pytest.approx(103.488e9 / 67e12)
+    assert bound_s(work.knn(s), pk) == pytest.approx(103.488e9 / 67e12)
     # gathers 4*8*7000*(c + 30 + 30c) at c = 4, 64, 64; the row scatter
     # 4*8*7000*(30*64 + 30 + 64); the tail 8*7000*(4*(2*64 + 30 + 64 + 1) + 64)
     assert work.gather_calls(s)["bytes"] == 34.496e6 + 2 * 451.136e6
     assert work.scatter_call(s)["bytes"] == 451.136e6
     assert work.tail_call(s)["bytes"] == 53.536e6
+
+
+# what observations() read at B=8, N=7000 before the work counts were found
+# by the configuration's architecture: seconds a batch / a step by family
+# at the H100's float32 peaks, and the flops of a block and of a step
+DGCNN_OBSERVATIONS = {
+    "ahn3_f4": ({"inference": {"knn": 0.0015445970149253732, "stage": 0.00041082268656716416,
+                               "extrema": 1.4844408358208956e-05},
+                 "training": {"knn": 0.0015445970149253732, "gather": 0.00027963223880597015,
+                              "scatter": 0.00013466746268656716,
+                              "tail": 1.598089552238806e-05}},
+                29934912000.0, 511404544000.0),
+    "ahn3_f9": ({"inference": {"knn": 0.0016031044776119404, "stage": 0.00041082268656716416,
+                               "extrema": 1.4844408358208956e-05},
+                 "training": {"knn": 0.0016031044776119404, "gather": 0.0002899964179104478,
+                              "scatter": 0.00013466746268656716,
+                              "tail": 1.598089552238806e-05}},
+                30433872000.0, 515467904000.0),
+}
+
+
+@pytest.mark.parametrize("config", sorted(DGCNN_OBSERVATIONS))
+def test_observations_keep_the_dgcnn_counts(config):
+    import run
+
+    cfg = core.read_json("configs", config)
+    arch = core.load_module("work", core.architecture(cfg, config))
+    obs = run.observations({"obs": {"batch": 8, "points": 7000}}, cfg, "NVIDIA H100 80GB HBM3",
+                           arch)
+    bounds, per_block, per_step = DGCNN_OBSERVATIONS[config]
+    assert obs["bounds"] == bounds
+    assert obs["forward_flops_per_block"] == per_block
+    assert obs["train_flops_per_step"] == per_step
+    assert obs["peak_flops"] == 67e12
+
+
+def test_a_configuration_must_name_its_architecture():
+    assert core.architecture(core.read_json("configs", "ahn3_f4"), "ahn3_f4") == "dgcnn"
+    with pytest.raises(KeyError, match="benchmark/configs/nameless.json"):
+        core.architecture({"model": {}}, "nameless")
+
+
+@pytest.mark.parametrize("kernel,group", [
+    ("knn_banded_kernel", "knn"), ("knn_capped_kernel_merge", "knn"),
+    ("knn_exact_banded_fused", "knn"), ("knn_packed_kernel_fused", "knn"),
+    ("edgeconv_stage_kernel", "stage"), ("edgeconv_stage_tf32_kernel", "stage"),
+    ("edgeconv_extrema_kernel", "extrema"),
+    ("gather_rows_kernel", "gather"), ("scatter_rows_kernel", "scatter"),
+    ("scatter_tail_kernel", "tail"), ("scatter_tail_tile_kernel", "tail"),
+    ("train_tail_sums_kernel", "torch_ops"), ("train_tail_apply_kernel", "torch_ops"),
+    ("train_tail_max_grad_kernel", "torch_ops"),
+    ("sm90_xmma_gemm_f32f32_f32f32_f32_nt_n_tilesize128x128x32", "gemm"),
+    ("nvjet_tst_128x64_64x4_1x2_h_bz_coopA_NNT", "gemm"),
+    ("void gemv2T_kernel_val<int, int, float, float, float, float, 128, 16, 4, 4>", "gemm"),
+    ("void splitKreduce_kernel<32, 16, int, float, float, float, float>", "gemm"),
+    ("ampere_sgemm_128x64_nn", "gemm"),
+    ("Memcpy HtoD (Pageable -> Device)", "copy"), ("Memset (Device)", "copy"),
+    ("void at::native::vectorized_elementwise_kernel<4, at::native::FillFunctor<float>>",
+     "torch_ops"),
+    ("void at::native::reduce_kernel<512, 1, at::native::ReduceOp<float>>", "torch_ops"),
+])
+def test_trace_groups_the_dgcnn_kernels_as_before(kernel, group):
+    from harness import trace
+
+    assert trace.group(kernel) == group
+    assert trace.group(kernel, trace.declared_groups(core.load_module("work", "dgcnn"))) == group
+
+
+def test_declared_kernel_families_match_first():
+    from types import SimpleNamespace
+
+    from harness import trace
+
+    declared = (("toy_pointwise", "pointwise"), ("toy_gemm_fused", "fused"))
+    assert trace.group("toy_pointwise_kernel", declared) == "pointwise"
+    assert trace.group("toy_gemm_fused_kernel", declared) == "fused"
+    assert trace.group("toy_gemm_fused_kernel") == "gemm"
+
+    cuda, cpu = torch.autograd.DeviceType.CUDA, torch.autograd.DeviceType.CPU
+
+    def ev(name, t0, t1, dev=cuda):
+        return SimpleNamespace(name=name, device_type=dev,
+                               time_range=SimpleNamespace(start=t0, end=t1))
+
+    events = [ev("bench.window", 0, 1000, cpu), ev("toy_pointwise_kernel", 100, 300),
+              ev("toy_gemm_fused_kernel", 300, 400), ev("knn_banded_kernel", 500, 600)]
+    got = trace.summary(events, declared)
+    assert got["groups"] == pytest.approx({"pointwise": 200e-6, "fused": 100e-6, "knn": 100e-6})
+    assert got["busy_s"] == pytest.approx(400e-6)
+    assert trace.summary(events)["groups"] == pytest.approx(
+        {"torch_ops": 200e-6, "gemm": 100e-6, "knn": 100e-6})
+    with pytest.raises(ValueError, match="torch_ops"):
+        trace.declared_groups(SimpleNamespace(KERNEL_GROUPS=(("x", "torch_ops"),),
+                                              __file__="work/x.py"))
 
 
 def test_reference_matches_port_cpu_forward():
@@ -139,6 +233,7 @@ def test_imports_leave_no_jax():
         "import run, calibrate, compare, dgcnn_ref\n"
         "from harness import core, scene, trace, weights, faults, readers, tap\n"
         "core.load_module('traffic', 'tiles'); core.load_module('traffic', 'train')\n"
+        "core.load_module('arch', 'dgcnn'); core.load_module('work', 'dgcnn')\n"
         "import dgcnn_tpu_torch.eval.predict, dgcnn_tpu_torch.train.steps\n"
         "import dgcnn_tpu_torch.data.prefetch, dgcnn_tpu_torch.models.dgcnn\n"
         "print(sorted({{m.split('.')[0] for m in sys.modules}} & "
@@ -221,6 +316,80 @@ def test_a_cell_is_added_by_new_files_alone(tmp_path):
     assert traced["metrics"]["tiles_served"]["value"] >= 1
     assert list(plain)[-1] == "checks"
     after = _digests(tmp_path / "benchmark")
+    assert {k: v for k, v in after.items() if k in before} == before
+
+
+def test_an_architecture_is_added_by_new_files_alone(tmp_path):
+    """A throwaway architecture (``tests/toy/``: a per-point two-layer model,
+    no guard, its own judges and one declared kernel family) with a
+    ``tiles`` and a ``train`` cell and a per-layer metric of the family's
+    bound, made in a temporary copy by new files plus entries in
+    BENCHMARK.json: both cells run through the shared loops on the CPU,
+    correct with ``--trace`` 0 and 1, and the ``alter`` fault fails them."""
+    shutil.copytree(BENCH, tmp_path / "benchmark", ignore=shutil.ignore_patterns("__pycache__"))
+    os.symlink(ROOT / "dgcnn_tpu_torch", tmp_path / "dgcnn_tpu_torch")
+    b = tmp_path / "benchmark"
+    before = _digests(b)
+    shutil.copy(BENCH / "tests" / "toy" / "arch.py", b / "arch" / "toy.py")
+    shutil.copy(BENCH / "tests" / "toy" / "work.py", b / "work" / "toy.py")
+    cfg = {"architecture": "toy", "precision": "float32", "features": ["x", "y", "z", "agl"],
+           "batch_size": 2, "num_points": 300, "min_class_confidence": 0.8,
+           "model": {"num_classes": 5, "num_features": 4, "hidden": 32},
+           "train": {"lr": 1e-3, "momentum": 0.9, "weight_decay": 1e-4, "scheduler": "cos",
+                     "epochs": 30}}
+    (b / "configs" / "toy.json").write_text(json.dumps(cfg))
+    tiles = json.loads((b / "workloads" / "f4_tiles.json").read_text())
+    tiles["params"].update(pool_blocks=20, min_blocks=2, max_blocks=9, cycle=4, sample_tiles=2,
+                           sample_range=3, trace_tiles=2)
+    train = json.loads((b / "workloads" / "f4_train.json").read_text())
+    train["params"].update(pool_batches=4, trace_steps=2)
+    limits = {"tiles": {"logit_gap": 1e-4, "label_rule": 0},
+              "train": {"loss_gap.1": 1e-4, "grad_gap": 1e-3}}
+    spec = json.loads((ROOT / "BENCHMARK.json").read_text())
+    spec["configs"].append({"name": "toy", "source": "https://example.org",
+                            "file": "benchmark/configs/toy.json", "reduced": [], "why": "a test"})
+    for wl, site, suffix, moves in ((tiles, "inference", "infer", "infer_pts_per_s"),
+                                    (train, "training", "train", "train_pts_per_s")):
+        cell = f"toy_{wl['traffic']}"
+        (b / "workloads" / f"{cell}.json").write_text(json.dumps(
+            {"config": "toy", "traffic": wl["traffic"], "why": "a test", "params": wl["params"],
+             "limits": limits[wl["traffic"]]}))
+        spec["workloads"].append({"name": cell, "config": "toy", "traffic": wl["traffic"],
+                                  "chips": 1, "why": "a test"})
+        for m in spec["end_to_end"]:
+            if f"f4_{wl['traffic']}" in m.get("workloads", []):
+                m["workloads"].append(cell)
+        next(m for m in spec["per_layer"] if m["name"] == f"mfu.{suffix}")["workloads"].append(cell)
+        (b / "metrics" / f"pointwise_bound_ms.{suffix}.py").write_text(
+            f"def read(obs):\n    return 1e3 * obs['bounds']['{site}']['pointwise']\n")
+        spec["per_layer"].append({"name": f"pointwise_bound_ms.{suffix}", "unit": "ms",
+                                  "better": "lower", "source": "host_clock", "layer": "toy",
+                                  "moves": moves, "workloads": [cell]})
+    (tmp_path / "BENCHMARK.json").write_text(json.dumps(spec))
+    code = ("import sys, json; sys.path[:0] = ['benchmark', 'benchmark/reference']; import run\n"
+            "from harness.faults import Fault\n"
+            "for cell in ('toy_tiles', 'toy_train'):\n"
+            "    for t, fault in ((False, None), (True, None), (False, Fault('alter'))):\n"
+            "        r = run.run_cell(cell, 2**31 + 77, 0.5, t, 'cpu', fault=fault)\n"
+            "        print(json.dumps(r['result'], default=str))\n")
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         env=_env(), cwd=tmp_path, timeout=600)
+    assert res.returncode == 0, res.stderr[-3000:]
+    lines = [json.loads(x) for x in res.stdout.strip().splitlines()[-6:]]
+    (t_plain, t_traced, t_alter), (r_plain, r_traced, r_alter) = lines[:3], lines[3:]
+    assert t_plain["correct"] and t_traced["correct"], (t_plain, t_traced)
+    assert r_plain["correct"] and r_traced["correct"], (r_plain, r_traced)
+    assert not t_alter["correct"] and not r_alter["correct"]
+    assert set(t_plain["metrics"]) == {"infer_pts_per_s", "tile_p95_ms", "peak_gb", "setup_s"}
+    assert set(r_plain["metrics"]) == {"train_pts_per_s", "peak_gb", "setup_s"}
+    # the toy's count at B=2, N=300: 2*2*300*(4*32 + 32*5) flops at 67 TFLOP/s,
+    # under 4*2*300*(4 + 5) bytes at 3.35 TB/s
+    assert t_traced["metrics"]["pointwise_bound_ms.infer"]["value"] == pytest.approx(
+        1e3 * max(345600 / 67e12, 21600 / 3.35e12))
+    assert r_traced["metrics"]["pointwise_bound_ms.train"]["value"] > 0
+    assert t_traced["metrics"]["mfu.infer"]["value"] > 0
+    assert r_traced["metrics"]["mfu.train"]["value"] > 0
+    after = _digests(b)
     assert {k: v for k, v in after.items() if k in before} == before
 
 

@@ -6,12 +6,13 @@ Set-up makes a pool of ``pool_blocks`` 30 m blocks from the seed
 whose block counts are the same stratified log-uniform draw over
 [``min_blocks``, ``max_blocks``] in every cycle and every seed, in an order
 and with blocks drawn from the seed. Each tile follows ``predict()``'s
-dispatch loop (``eval/predict.py:317-358``) with the port's own pieces:
-a fresh ``make_guarded_predict_step`` (the step and its
-``BandGuardScheduler``), batches of ``batch_size`` blocks through
-``assemble_batch`` (the last padded by repeating the tile's last block),
-H2D, up to ``in_flight`` batches queued before the host drains labels, then
-the retroactive re-run of ``suspect_dispatches()`` at ``band_mode=2``.
+dispatch loop (``eval/predict.py:317-358``) with the port's own pieces and
+the architecture's (``arch/``): a fresh tile step (DGCNN: the guarded
+step and its ``BandGuardScheduler``), batches of ``batch_size`` blocks
+through ``assemble_batch`` (the last padded by repeating the tile's last
+block), H2D, up to ``in_flight`` batches queued before the host drains
+labels, then the re-run of the dispatches the tile names as suspect
+(DGCNN: ``suspect_dispatches()`` at ``band_mode=2``).
 
 Tile latency runs from the tile's start to its last label on the host.
 Only real, unpadded block points count as classified. The window closes
@@ -42,27 +43,21 @@ def run(ctx) -> dict:
     import torch
 
     from dgcnn_tpu_torch.eval.predict import assemble_batch
-    from dgcnn_tpu_torch.models.dgcnn import DGCNN, DGCNNConfig
-    from dgcnn_tpu_torch.train.steps import make_guarded_predict_step, make_predict_step
     from harness import scene
-    from harness.tap import KnnTap
-    from harness.weights import make_weights
 
     cfg_file, p, dev = ctx["config"], ctx["params"], ctx["device"]
-    cfg = DGCNNConfig(**{**cfg_file["model"], **ctx.get("overrides", {})})
     batch, conf = cfg_file["batch_size"], cfg_file["min_class_confidence"]
     n_pts = cfg_file["num_points"]
     seed = ctx["seed"]
 
     phases = {"start": time.perf_counter() - ctx["t_start"]}
     t = time.perf_counter()
-    weights = make_weights(cfg_file["model"], seed, dev)
-    model = DGCNN(cfg).to(dev)
-    model.load_state_dict(weights)
-    tap = KnnTap(model)
+    judge_tiles = ctx["arch"].judge_tiles
+    pieces = ctx["arch"].Pieces(cfg_file, ctx.get("overrides", {}), seed, dev)
+    weights, tap = pieces.weights, pieces.tap
     fault = ctx.get("fault")
     if fault is not None:
-        fault.plant_tiles(model)
+        fault.plant_tiles(pieces.module)
     rng = np.random.default_rng([seed, 1])
     pool, _ = scene.make_blocks(rng, p["pool_blocks"], n_pts, cfg_file["features"])
     data = pool.reshape(-1, pool.shape[-1])
@@ -74,8 +69,7 @@ def run(ctx) -> dict:
     sampled = {int(t): int(srng.integers(0, -(-len(tiles[t]) // batch)))
                for t in srng.choice(p["sample_range"], p["sample_tiles"], replace=False)}
     spans = ctx["spans"]
-    full_step = make_predict_step(min_class_confidence=conf, unclassified=UNCLASSIFIED,
-                                  band_flag=True)
+    pieces.serve(conf, UNCLASSIFIED)
     samples: list = []
     counts = {"tiles": 0, "tripped": 0, "blocks": 0, "dispatches": 0, "reruns": 0}
     latencies: list[float] = []
@@ -83,8 +77,7 @@ def run(ctx) -> dict:
     def serve(ids: np.ndarray, sample_batch: int | None) -> None:
         t0 = time.perf_counter()
         with spans("tile_start"):
-            predict_step, band_sched = make_guarded_predict_step(
-                cfg, dev, min_class_confidence=conf, unclassified=UNCLASSIFIED)
+            tile = pieces.tile()
         rows = block_rows[ids]
         n_blocks = len(rows)
         all_pred = np.zeros((n_blocks, n_pts), np.int32)
@@ -109,7 +102,7 @@ def run(ctx) -> dict:
             with spans("dispatch"):
                 tap.armed = bi == sample_batch
                 points, nreal = assemble(start)
-                pred, probs, logits = predict_step(model, points)
+                pred, probs, logits = tile.step(points)
             counts["dispatches"] += 1
             if tap.armed:
                 kept[bi] = [probs, logits, *tap.take()]
@@ -119,17 +112,17 @@ def run(ctx) -> dict:
         while in_flight:
             drain_one()
         with spans("repair"):
-            redo = band_sched.suspect_dispatches()
+            redo = tile.suspects()
             for bi in redo:
                 tap.armed = bi == sample_batch
                 points, nreal = assemble(bi * batch)
-                pred, probs, logits = full_step(model, points, band_mode=2)[:3]
+                pred, probs, logits = tile.rerun(points)
                 if tap.armed:
                     kept[bi] = [t.cpu() for t in (probs, logits, *tap.take())]
                 all_pred[bi * batch: bi * batch + nreal] = pred.cpu().numpy()[:nreal]
         latencies.append(time.perf_counter() - t0)
         counts["tiles"] += 1
-        counts["tripped"] += band_sched.tripped
+        counts["tripped"] += tile.tripped
         counts["blocks"] += n_blocks
         counts["reruns"] += len(redo)
         for bi, (probs, logits, *idx) in kept.items():
@@ -140,12 +133,12 @@ def run(ctx) -> dict:
                             "labels": all_pred[lo:lo + nreal].copy(),
                             "idx": [i.numpy()[:nreal] for i in idx]})
 
-    # warm-up: the cell's shapes on every route (guarded, unguarded, the
-    # re-run's band_mode=2), a padded batch; not in the window
+    # warm-up: the cell's shapes on every route (DGCNN: guarded, unguarded,
+    # the re-run's band_mode=2), a padded batch; not in the window
     t = time.perf_counter()
     for ids in (np.arange(9 * batch), np.arange(batch + 3)):
         serve(ids % p["pool_blocks"], None)
-    full_step(model, torch.from_numpy(pool[:batch]).to(dev), band_mode=2)
+    pieces.warm_rerun(torch.from_numpy(pool[:batch]).to(dev))
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     phases["warmup"] = time.perf_counter() - t
@@ -174,13 +167,13 @@ def run(ctx) -> dict:
         from harness.trace import profiled
 
         before = dict(counts)
-        with profiled(spans) as traced:
+        with profiled(spans, ctx["kernel_groups"]) as traced:
             for t in range(nxt, min(nxt + p["trace_tiles"], len(tiles))):
                 serve(tiles[t], None)
         traced["dispatches"] = counts["dispatches"] - before["dispatches"] \
             + counts["reruns"] - before["reruns"]
 
-    del model, tap, full_step
+    del pieces, tap
     lat_ms = np.asarray(latencies[:window["tiles"]]) * 1e3
     return {
         "setup_s": setup_s,
@@ -195,12 +188,5 @@ def run(ctx) -> dict:
             "setup_s": setup_s,
         },
         "obs": {"window": window, "trace": traced, "batch": batch, "points": n_pts},
-        "judge": lambda: _judge(samples, weights, cfg_file, dev),
+        "judge": lambda: judge_tiles(samples, weights, cfg_file, dev),
     }
-
-
-def _judge(samples, weights, cfg_file, dev) -> dict:
-    from compare import judge_tiles
-
-    return judge_tiles(samples, weights, cfg_file["model"]["k"],
-                       cfg_file["min_class_confidence"], dev)

@@ -5,13 +5,14 @@ Set-up makes a pool of ``pool_batches`` batches from the seed: blocks of
 ``harness/scene.py`` with their labels and the reference's class-balance
 masks. The weights come from the seed on the device; the state is the
 port's ``TrainState`` (Adam as ``make_optimizer`` builds it, the dropout
-generator on the device). Each pass over the pool (an epoch: the first in
-order, later ones shuffled from the seed) goes through
-``prefetch_to_device(size=2)`` and ``to_device``, and re-arms the recall
-guard's ``BandGuardScheduler``. Each step takes ``next_mode()``, calls the
-guarded ``make_train_step`` step, adds the confusion matrix on the device
-and makes the loop's one host read: the loss, and the trip flag with it on
-a guarded step.
+generator on the device); the model, its train step and its guard are
+the architecture's (``arch/``). Each pass over the pool (an epoch: the
+first in order, later ones shuffled from the seed) goes through
+``prefetch_to_device(size=2)`` and ``to_device``, and re-arms the guard
+(DGCNN: the recall guard's ``BandGuardScheduler``). Each step takes
+``next_mode()``, calls the step (DGCNN: the guarded ``make_train_step``
+step), adds the confusion matrix on the device and makes the loop's one
+host read: the loss, and the trip flag with it on a guarded step.
 
 Set-up drives this one state through its first ``setup_steps`` steps, the
 window's own call and feed on the pool's first batches, and records what
@@ -28,35 +29,25 @@ import time
 import numpy as np
 
 STEPS_CHECKED = 3
-DROPOUT_WIDTH = 256  # conv8's output, where the model drops
 
 
 def run(ctx) -> dict:
     import torch
 
     from dgcnn_tpu_torch.data.prefetch import prefetch_to_device, to_device
-    from dgcnn_tpu_torch.models.dgcnn import DGCNN, DGCNNConfig
-    from dgcnn_tpu_torch.train.steps import (
-        BandGuardScheduler,
-        TrainState,
-        make_optimizer,
-        make_train_step,
-    )
+    from dgcnn_tpu_torch.train.steps import TrainState, make_optimizer
     from harness import scene
-    from harness.tap import KnnTap
-    from harness.weights import generator, make_weights
+    from harness.core import generator
 
     cfg_file, p, dev = ctx["config"], ctx["params"], ctx["device"]
-    cfg = DGCNNConfig(**{**cfg_file["model"], **ctx.get("overrides", {})})
     tr = cfg_file["train"]
     b, n_pts, seed = cfg_file["batch_size"], cfg_file["num_points"], ctx["seed"]
 
     phases = {"start": time.perf_counter() - ctx["t_start"]}
     t = time.perf_counter()
-    weights = make_weights(cfg_file["model"], seed, dev)
-    model = DGCNN(cfg).to(dev)
-    model.load_state_dict(weights)
-    tap = KnnTap(model)
+    judge_train = ctx["arch"].judge_train
+    pieces = ctx["arch"].Pieces(cfg_file, ctx.get("overrides", {}), seed, dev)
+    weights, model, tap = pieces.weights, pieces.module, pieces.tap
     opt, lr_at = make_optimizer(
         model.parameters(), lr=tr["lr"], momentum=tr["momentum"],
         weight_decay=tr["weight_decay"], scheduler=tr["scheduler"], epochs=tr["epochs"],
@@ -65,21 +56,20 @@ def run(ctx) -> dict:
     state = TrainState(model=model, optimizer=opt, lr_at=lr_at,
                        rng=np.random.default_rng([seed, 3]).integers(0, 2**32, 2, dtype=np.uint32),
                        generator=generator(dropout_seed, dev))
-    band_sched = BandGuardScheduler(cfg, dev)
-    train_step = make_train_step(cfg, smoothing=tr["smoothing"], band_guard=band_sched.active)
+    train_step = pieces.train_step()
     fault = ctx.get("fault")
     if fault is not None:
         train_step = fault.plant_train(train_step, state)
 
     rng = np.random.default_rng([seed, 1])
     pts, labels = scene.make_blocks(rng, p["pool_batches"] * b, n_pts, cfg_file["features"])
-    masks = np.stack([scene.create_train_mask(rng, lab, cfg.num_classes) for lab in labels])
+    masks = np.stack([scene.create_train_mask(rng, lab, pieces.num_classes) for lab in labels])
     pool = [(pts[i * b:(i + 1) * b], labels[i * b:(i + 1) * b], masks[i * b:(i + 1) * b])
             for i in range(p["pool_batches"])]
     phases["weights_and_pool"] = time.perf_counter() - t
     spans = ctx["spans"]
     counts = {"steps": 0, "trips": 0, "failed": 0, "guarded": 0}
-    cm_dev = torch.zeros((cfg.num_classes, cfg.num_classes), device=dev)
+    cm_dev = torch.zeros((pieces.num_classes, pieces.num_classes), device=dev)
     passes = [0]
 
     def feed():
@@ -87,7 +77,7 @@ def run(ctx) -> dict:
             order = (np.arange(len(pool)) if passes[0] == 0
                      else np.random.default_rng([seed, 5, passes[0]]).permutation(len(pool)))
             passes[0] += 1
-            band_sched.rearm()
+            pieces.rearm()
             yield from prefetch_to_device(
                 (pool[i] for i in order), size=2,
                 transfer=lambda bt: (bt, to_device(bt, dev)))
@@ -98,18 +88,14 @@ def run(ctx) -> dict:
         nonlocal cm_dev
         with spans("input_wait"):
             _, (x, y, m) = next(batches)
-        guarded = False
         with spans("step"):
-            if band_sched.active:
-                mode, guarded = band_sched.next_mode()
-                metrics = train_step(state, x, y, m, mode)
-            else:
-                metrics = train_step(state, x, y, m)
+            mode, guarded = pieces.next_mode()
+            metrics = train_step(state, x, y, m, *mode)
         with spans("loss_read"):
             if guarded:
                 loss, flag = torch.stack(
                     [metrics["loss"], metrics["band_tripped"].float()]).tolist()
-                band_sched.observe(bool(flag))
+                pieces.observe(bool(flag))
                 counts["trips"] += int(flag)
                 counts["guarded"] += 1
             else:
@@ -160,7 +146,7 @@ def run(ctx) -> dict:
         from harness.trace import profiled
 
         before = counts["steps"]
-        with profiled(spans) as traced:
+        with profiled(spans, ctx["kernel_groups"]) as traced:
             for _ in range(p["trace_steps"]):
                 step()
         traced["steps"] = counts["steps"] - before
@@ -168,7 +154,6 @@ def run(ctx) -> dict:
     program = {"losses": losses[:STEPS_CHECKED], "grad_norms": grad_norms,
                "change_norms": change_norms}
     checked = pool[:STEPS_CHECKED]
-    keep_shape = (b, n_pts, DROPOUT_WIDTH)
     return {
         "setup_s": setup_s,
         "setup_phases": phases,
@@ -181,13 +166,6 @@ def run(ctx) -> dict:
             "setup_s": setup_s,
         },
         "obs": {"window": window, "trace": traced, "batch": b, "points": n_pts},
-        "judge": lambda: _judge(weights, checked, idxs, dropout_seed, keep_shape, program,
-                                cfg_file, dev),
+        "judge": lambda: judge_train(weights, checked, idxs, dropout_seed, program, cfg_file,
+                                     dev),
     }
-
-
-def _judge(weights, batches, idxs, dropout_seed, keep_shape, program, cfg_file, dev) -> dict:
-    from compare import judge_train, keep_masks
-
-    keep = keep_masks(dropout_seed, keep_shape, cfg_file["model"]["dropout"], len(batches), dev)
-    return judge_train(weights, batches, idxs, keep, program, cfg_file, dev)

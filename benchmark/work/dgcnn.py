@@ -128,12 +128,6 @@ def tail_call(s: dict) -> dict:
     return {"flops": 0.0, "bytes": b * n * (F32 * (2 * c + k + c + 1) + c)}
 
 
-def bound_s(work: dict, peaks: dict) -> float:
-    """The least seconds the card could take: the larger of operations over
-    the peak rate and bytes over the peak bandwidth."""
-    return max(work["flops"] / peaks["flops_per_s"], work["bytes"] / peaks["bytes_per_s"])
-
-
 # call sites a batch or a step has, by kernel family: (work, calls)
 def inference_sites(s: dict) -> dict:
     return {"knn": (knn(s), 1), "stage": (stage_call(s), 2), "extrema": (extrema_call(s), 1)}
